@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of recommend_tpu for NVIDIA Hopper (H100).
+
+The JAX package ``recommend_tpu`` is the reference; this package imports
+nothing of it. Ported so far: ranking serving (config, tokenizer, ranking
+model with its KV-cache decomposition, the inference engine) and the four
+band-attention forward kernels in ``csrc/band_attention.cu``.
+"""
+
+from recommend_tpu_torch.config import RankingConfig, get_config
+
+__all__ = ["RankingConfig", "get_config"]

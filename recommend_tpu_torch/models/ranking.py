@@ -1,0 +1,345 @@
+"""Unified ranking transformer (OneTrans capability), serving forward.
+
+tokenize [S; NS] -> N pre-norm blocks with mixed parameterization (shared
+Q/K/V/FFN weights for S tokens, per-token dedicated stacks for the n_ns NS
+tokens) and pyramid tail-query pruning -> RMSNorm -> per-task MLP heads on
+the last token.
+
+The KV-cache decomposition: under the causal band mask the S trunk does not
+depend on the NS tokens, so ``encode_s`` runs it once per request and returns
+per-layer S keys/values, and ``score_with_cache`` scores any number of
+candidates through the NS-only path over that cache. It equals the full
+forward.
+
+This module is the serving forward: it has no dropout and no backward
+kernels (training is a later slice of the port).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.models.tokenizer import UnifiedTokenizer, compute_dtype, dense
+from recommend_tpu_torch.ops.attention import (
+    causal_band_mask,
+    dot_product_attention,
+    padding_mask_bias,
+)
+from recommend_tpu_torch.ops.flash_attention import (
+    flash_attention_bhld,
+    flash_attention_bhld_segkv,
+)
+from recommend_tpu_torch.ops.normalization import RMSNorm
+
+CacheEntry = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _einsum_f32(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum(x, w.astype(x.dtype), preferred_element_type=f32)`` cast back
+    to x.dtype: products of the rounded operands are exact in float32."""
+    return torch.einsum(eq, x.float(), w.to(x.dtype).float()).to(x.dtype)
+
+
+def pyramid_keep_lengths(cfg: RankingConfig, total_len: int) -> List[int]:
+    """Static per-layer kept-token counts (oneTrans PyramidScheduler). Ratios
+    apply to the initial length; the kept window is never smaller than the
+    NS block and never grows."""
+    lens = []
+    cur = total_len
+    for r in cfg.pyramid_ratios:
+        keep = max(int(round(total_len * r)), cfg.num_ns_tokens)
+        keep = min(keep, cur)
+        lens.append(keep)
+        cur = keep
+    return lens
+
+
+class MixedBlock(nn.Module):
+    """Pre-norm block with mixed shared(S)/dedicated(NS) parameterization.
+
+    Three entry points share one parameter set:
+      - ``full_call``: the whole [S; NS] stream with tail-query pruning;
+      - ``s_call``: the S-only trunk, returning the S K/V for caching;
+      - ``ns_call``: the NS-only path over cached S K/V, per candidate.
+    """
+
+    def __init__(self, cfg: RankingConfig):
+        super().__init__()
+        self.config = cfg
+        d, h, n, f = cfg.embed_dim, cfg.num_heads, cfg.num_ns_tokens, cfg.ffn_dim
+        hd = (d // h) * h
+        self.attn_norm = RMSNorm(d)
+        self.ffn_norm = RMSNorm(d)
+        # shared (S-token) projections
+        self.q_s = nn.Linear(d, hd)
+        self.k_s = nn.Linear(d, hd)
+        self.v_s = nn.Linear(d, hd)
+        # dedicated per-NS-token stacks [n, d, h·dh]
+        self.q_ns = nn.Parameter(torch.empty(n, d, hd))
+        self.k_ns = nn.Parameter(torch.empty(n, d, hd))
+        self.v_ns = nn.Parameter(torch.empty(n, d, hd))
+        self.o_proj = nn.Linear(hd, d)
+        # shared FFN (GELU 2-layer)
+        self.ffn_s_in = nn.Linear(d, f)
+        self.ffn_s_out = nn.Linear(f, d)
+        # dedicated NS FFN stacks
+        self.ffn_ns_in = nn.Parameter(torch.empty(n, d, f))
+        self.ffn_ns_in_b = nn.Parameter(torch.empty(n, f))
+        self.ffn_ns_out = nn.Parameter(torch.empty(n, f, d))
+        self.ffn_ns_out_b = nn.Parameter(torch.empty(n, d))
+
+    # -- projection helpers ------------------------------------------------
+    def _dense(self, layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return dense(layer, x, compute_dtype(self.config))
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.config.num_heads
+        return x.reshape(*x.shape[:-1], h, x.shape[-1] // h)
+
+    def _proj_ns(self, w: torch.Tensor, x_ns: torch.Tensor) -> torch.Tensor:
+        """[n, d, h·dh] stacked weights x [B, n, d] -> [B, n, h, dh]."""
+        return self._heads(_einsum_f32("bnd,ndk->bnk", x_ns, w))
+
+    def _ffn_ns(self, x_ns: torch.Tensor) -> torch.Tensor:
+        dt = x_ns.dtype
+        h = _einsum_f32("bnd,ndf->bnf", x_ns, self.ffn_ns_in) + self.ffn_ns_in_b.to(dt)
+        h = gelu(h)
+        return _einsum_f32("bnf,nfd->bnd", h, self.ffn_ns_out) + self.ffn_ns_out_b.to(dt)
+
+    def _ffn_s(self, x: torch.Tensor) -> torch.Tensor:
+        return self._dense(self.ffn_s_out, gelu(self._dense(self.ffn_s_in, x)))
+
+    def _attend(
+        self,
+        q: torch.Tensor,  # [B, Lq, H, Dh]
+        k: torch.Tensor,  # [B, Lkv, H, Dh]
+        v: torch.Tensor,
+        key_valid: torch.Tensor,  # [B, Lkv]
+        q_offset: int,
+    ) -> torch.Tensor:
+        """Band attention: the kernels when the flag is on and the query
+        window is at least 64 rows; the plain path otherwise."""
+        if self.config.use_flash_attention and q.shape[1] >= 64:
+            return flash_attention_bhld(q, k, v, key_valid, q_offset, True)
+        bias = (
+            causal_band_mask(q.shape[1], k.shape[1], q_offset, device=q.device)[None, None]
+            + padding_mask_bias(key_valid)
+        )
+        return dot_product_attention(q, k, v, bias)
+
+    def _attend_mixed(
+        self,
+        q: torch.Tensor,       # [B, Lq, H, Dh] tail queries over [S; NS]
+        k_s: torch.Tensor,     # [B, Ls, H, Dh]
+        v_s: torch.Tensor,
+        s_valid: torch.Tensor,  # [B, Ls]
+        k_ns: torch.Tensor,    # [B, n, H, Dh]
+        v_ns: torch.Tensor,
+        q_offset: int,
+    ) -> torch.Tensor:
+        """Band attention over the segmented [S ; NS] keys; the segmented
+        kernel joins the segments without a concatenated copy."""
+        if self.config.use_flash_attention and q.shape[1] >= 64:
+            return flash_attention_bhld_segkv(
+                q, k_s, v_s, k_ns, v_ns, s_valid, q_offset, True
+            )
+        # the same gate as _attend's, so this takes its plain path
+        key_valid = torch.cat(
+            [s_valid, s_valid.new_ones((q.shape[0], k_ns.shape[1]))], dim=1
+        )
+        return self._attend(
+            q, torch.cat([k_s, k_ns], dim=1), torch.cat([v_s, v_ns], dim=1),
+            key_valid, q_offset,
+        )
+
+    def _o_proj(self, attn: torch.Tensor) -> torch.Tensor:
+        return self._dense(self.o_proj, attn.reshape(*attn.shape[:-2], -1))
+
+    # -- entry points ------------------------------------------------------
+    def full_call(
+        self,
+        x: torch.Tensor,  # [B, L, d]; last n_ns tokens are NS
+        s_len: int,
+        keep_len: int,
+        key_valid: torch.Tensor,  # [B, L]
+    ) -> torch.Tensor:
+        """Tail-``keep_len`` queries over the full K/V -> [B, keep_len, d]."""
+        n = self.config.num_ns_tokens
+        b, l, d = x.shape
+        assert s_len + n == l and n <= keep_len <= l
+        hx = self.attn_norm(x)
+        h_s, h_ns = hx[:, :s_len], hx[:, s_len:]
+        k_s = self._heads(self._dense(self.k_s, h_s))
+        v_s = self._heads(self._dense(self.v_s, h_s))
+        k_ns = self._proj_ns(self.k_ns, h_ns)
+        v_ns = self._proj_ns(self.v_ns, h_ns)
+        keep_s = keep_len - n
+        q_ns = self._proj_ns(self.q_ns, h_ns)
+        if keep_s > 0:
+            q_s_tail = self._heads(self._dense(self.q_s, h_s[:, s_len - keep_s:]))
+            q = torch.cat([q_s_tail, q_ns], dim=1)
+        else:
+            q = q_ns
+        attn = self._attend_mixed(
+            q, k_s, v_s, key_valid[:, :s_len], k_ns, v_ns, l - keep_len
+        )
+        x = x[:, l - keep_len:] + self._o_proj(attn)
+        hx = self.ffn_norm(x)
+        f_ns = self._ffn_ns(hx[:, keep_s:])
+        f = torch.cat([self._ffn_s(hx[:, :keep_s]), f_ns], dim=1) if keep_s > 0 else f_ns
+        return x + f
+
+    def s_call(
+        self,
+        x_s: torch.Tensor,  # [B, Ls, d]
+        keep_s: int,
+        key_valid: torch.Tensor,  # [B, Ls]
+    ) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+        """S-only trunk step -> (pruned S output or None, k_s, v_s); k_s/v_s
+        are this layer's S keys/values, exactly what the full path uses."""
+        hx = self.attn_norm(x_s)
+        k_s = self._heads(self._dense(self.k_s, hx))
+        v_s = self._heads(self._dense(self.v_s, hx))
+        if keep_s <= 0:
+            return None, k_s, v_s
+        ls = x_s.shape[1]
+        q = self._heads(self._dense(self.q_s, hx[:, ls - keep_s:]))
+        attn = self._attend(q, k_s, v_s, key_valid, ls - keep_s)
+        x = x_s[:, ls - keep_s:] + self._o_proj(attn)
+        return x + self._ffn_s(self.ffn_norm(x)), k_s, v_s
+
+    def ns_call(
+        self,
+        x_ns: torch.Tensor,  # [B, n, d]
+        k_s: Optional[torch.Tensor],  # [Bc, Ls, H, Dh] cached (Bc broadcastable)
+        v_s: Optional[torch.Tensor],
+        s_key_valid: Optional[torch.Tensor],  # [Bc, Ls]
+    ) -> torch.Tensor:
+        """NS-token path over cached S K/V, the per-candidate hot path."""
+        b, n = x_ns.shape[:2]
+        hx = self.attn_norm(x_ns)
+        q = self._proj_ns(self.q_ns, hx)
+        k_ns = self._proj_ns(self.k_ns, hx)
+        v_ns = self._proj_ns(self.v_ns, hx)
+        ones = torch.ones((b, n), dtype=torch.bool, device=x_ns.device)
+        if k_s is not None:
+            k_s = k_s.expand((b,) + k_s.shape[1:]).to(k_ns.dtype)
+            v_s = v_s.expand((b,) + v_s.shape[1:]).to(v_ns.dtype)
+            k = torch.cat([k_s, k_ns], dim=1)
+            v = torch.cat([v_s, v_ns], dim=1)
+            key_valid = torch.cat(
+                [s_key_valid.expand(b, s_key_valid.shape[1]), ones], dim=1
+            )
+        else:
+            k, v, key_valid = k_ns, v_ns, ones
+        bias = (causal_band_mask(n, k.shape[1], device=x_ns.device)[None, None]
+                + padding_mask_bias(key_valid))
+        x = x_ns + self._o_proj(dot_product_attention(q, k, v, bias))
+        return x + self._ffn_ns(self.ffn_norm(x))
+
+
+class RankingModel(nn.Module):
+    def __init__(self, cfg: RankingConfig):
+        super().__init__()
+        self.config = cfg
+        self.tokenizer = UnifiedTokenizer(cfg)
+        self.blocks = nn.ModuleList(MixedBlock(cfg) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.embed_dim)
+        self.heads = nn.ModuleDict({
+            t: nn.ModuleDict({
+                "hidden": nn.Linear(cfg.embed_dim, cfg.task_head_hidden),
+                "out": nn.Linear(cfg.task_head_hidden, 1),
+            })
+            for t in cfg.tasks
+        })
+
+    def _apply_heads(self, last_token: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Per-task logits [B], computed in float32."""
+        x32 = last_token.float()
+        return {
+            t: head["out"](gelu(head["hidden"](x32)))[..., 0]
+            for t, head in self.heads.items()
+        }
+
+    def forward(
+        self,
+        non_seq: Dict[str, torch.Tensor],
+        sequences: Dict[str, torch.Tensor],
+        seq_valid: Dict[str, torch.Tensor],
+    ) -> Dict[str, torch.Tensor]:
+        """Full forward -> per-task logits [B]."""
+        cfg = self.config
+        x, valid = self.tokenizer(non_seq, sequences, seq_valid)
+        total = x.shape[1]
+        s_len = total - cfg.num_ns_tokens
+        for blk, keep in zip(self.blocks, pyramid_keep_lengths(cfg, total)):
+            x = blk.full_call(x, s_len, keep, valid)
+            valid = valid[:, -keep:]
+            s_len = keep - cfg.num_ns_tokens
+        x = self.final_norm(x)
+        return self._apply_heads(x[:, -1])
+
+    # -- KV-cache serving decomposition -----------------------------------
+    def encode_s_tokens(
+        self, s_tokens: torch.Tensor, s_valid: torch.Tensor
+    ) -> List[CacheEntry]:
+        """``encode_s`` over precomputed S token vectors."""
+        return self._encode_s_trunk(s_tokens, s_valid)
+
+    def encode_s(
+        self,
+        sequences: Dict[str, torch.Tensor],
+        seq_valid: Dict[str, torch.Tensor],
+    ) -> List[CacheEntry]:
+        """Once per request: run the S trunk and return per-layer
+        (k_s, v_s, s_key_valid), the cross-candidate KV cache."""
+        cfg = self.config
+        if not any(f in sequences for f in cfg.sequence_features):
+            # NS-only configs: nothing to cache
+            return [None] * cfg.num_layers
+        x, valid = self.tokenizer.s_tokens(sequences, seq_valid)
+        return self._encode_s_trunk(x, valid)
+
+    def _encode_s_trunk(
+        self, x: torch.Tensor, valid: torch.Tensor
+    ) -> List[CacheEntry]:
+        cfg = self.config
+        total = x.shape[1] + cfg.num_ns_tokens
+        cache: List[CacheEntry] = []
+        for blk, keep in zip(self.blocks, pyramid_keep_lengths(cfg, total)):
+            if x is None or x.shape[1] == 0:
+                cache.append(None)
+                continue
+            keep_s = keep - cfg.num_ns_tokens
+            y, k_s, v_s = blk.s_call(x, keep_s, valid)
+            cache.append((k_s, v_s, valid))
+            x = y
+            if y is not None:
+                valid = valid[:, -keep_s:]
+        return cache
+
+    def score_with_cache(
+        self,
+        cache: List[CacheEntry],
+        non_seq: Dict[str, torch.Tensor],
+    ) -> Dict[str, torch.Tensor]:
+        """Per candidate batch: the NS-only pass over cached S K/V.
+        ``non_seq`` holds C candidate rows; the cache batch dim broadcasts."""
+        x = self.tokenizer.ns_tokens(non_seq)
+        for blk, entry in zip(self.blocks, cache):
+            if entry is None:
+                x = blk.ns_call(x, None, None, None)
+            else:
+                x = blk.ns_call(x, *entry)
+        x = self.final_norm(x)
+        return self._apply_heads(x[:, -1])

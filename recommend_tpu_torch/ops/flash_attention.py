@@ -1,0 +1,390 @@
+"""Band-masked attention forward kernels and their dispatchers.
+
+The counterpart of the JAX package's ``ops/pallas/flash_attention.py``. Each
+of its four forward Pallas kernels has here
+
+- a wrapper named after its CUDA entry point in ``csrc/band_attention.cu``
+  (``band_attn_blocked_fwd``, ``band_attn_bh_fwd``, ``band_attn_mh_fwd``,
+  ``band_attn_segkv_fwd``), returning ``(out, lse)``;
+- a plain PyTorch version of the same function (``*_plain``);
+- a launch count in ``LAUNCHES``, raised by one at each kernel launch;
+- the JAX package's public name (``flash_band_attention`` ...), returning
+  ``out``.
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors it
+launches the kernel or raises. The kernels are forward only: the backward
+kernels belong to the training slice, and a CUDA call that would need a
+gradient raises.
+
+The dispatchers ``flash_attention_bhld`` and ``flash_attention_bhld_segkv``
+carry the JAX package's predicates verbatim (``lkv <= FUSED_MAX_KV``,
+``dh % 128 == 0``, the VMEM group rule of ``_fused_group_for``), so a shape
+reaches the counterpart of the kernel it reaches there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from recommend_tpu_torch.ops import _build
+
+NEG_INF = -1e9
+FUSED_GROUP = 8  # batch·head rows per grid step of the TPU whole-tile kernels
+FUSED_MAX_KV = 1024  # beyond this the TPU whole-tile kernels do not fit VMEM
+
+LAUNCHES = {
+    "band_attn_blocked_fwd": 0,
+    "band_attn_bh_fwd": 0,
+    "band_attn_mh_fwd": 0,
+    "band_attn_segkv_fwd": 0,
+}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_BH_SIG = [_P] * 6 + [_I] * 6 + [_F, _I, _P]
+_SIGNATURES = {
+    "band_attn_blocked_fwd": _BH_SIG,
+    "band_attn_bh_fwd": _BH_SIG,
+    "band_attn_mh_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "band_attn_segkv_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DH = (16, 32, 64, 128)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _band_attention_plain(
+    q: torch.Tensor,  # [G, H, Lq, Dh]
+    k: torch.Tensor,  # [G, H, Lkv, Dh]
+    v: torch.Tensor,
+    bias: torch.Tensor,  # [G, 1 or H, Lkv] float32, additive
+    sm_scale: float,
+    q_offset: int,
+    causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What every kernel computes, written out: logits in float32 (bf16
+    products are exact in float32), then + bias, then + the band, softmax
+    with ``l`` clamped at 1e-30, p cast to the value dtype before PV."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = s + bias[:, :, None, :]
+    if causal:
+        lq, lkv = q.shape[2], k.shape[2]
+        q_pos = q_offset + torch.arange(lq, device=q.device)
+        kv_pos = torch.arange(lkv, device=q.device)
+        s = s + torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    out = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l))[..., 0]
+    return out, lse
+
+
+def band_attn_blocked_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal):
+    out, lse = _band_attention_plain(
+        q[:, None], k[:, None], v[:, None], kv_bias[:, None], sm_scale,
+        q_offset, causal,
+    )
+    return out[:, 0], lse[:, 0]
+
+
+def band_attn_bh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal):
+    return band_attn_blocked_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
+
+
+def _heads_first(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, l, hd = x.shape
+    return x.reshape(b, l, h, hd // h).transpose(1, 2)
+
+
+def band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal, h):
+    out, lse = _band_attention_plain(
+        _heads_first(q, h), _heads_first(k, h), _heads_first(v, h),
+        kv_bias[:, None], sm_scale, q_offset, causal,
+    )
+    return out.transpose(1, 2).reshape(q.shape), lse
+
+
+def band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
+                              causal, h):
+    """One softmax over the joined [S ; NS] keys: the NS keys sit at
+    positions Ls..Ls+n-1 and are all valid (bias 0, an exact addition)."""
+    bias = torch.cat([s_bias, s_bias.new_zeros(s_bias.shape[0], kns.shape[1])], 1)
+    return band_attn_mh_fwd_plain(
+        q, torch.cat([k, kns], 1), torch.cat([v, vns], 1), bias, sm_scale,
+        q_offset, causal, h,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, qkv, bias: torch.Tensor, dh: int) -> bool:
+    """Validate the inputs of one wrapper; True when they lie on the CPU
+    (plain version), False for CUDA (kernel launch)."""
+    q = qkv[0]
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for t in (*qkv, bias):
+        if t.device != dev:
+            raise ValueError(f"{name}: inputs on {t.device} and {dev}")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in qkv):
+        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
+                        f"{[t.dtype for t in qkv]}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
+    if not all(t.is_contiguous() for t in (*qkv, bias)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if dev.type == "cpu":
+        return True
+    if dh not in _KERNEL_DH:
+        raise ValueError(f"{name}: head dim {dh} not in {_KERNEL_DH}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (*qkv, bias)):
+        raise NotImplementedError(
+            f"{name}: forward only; the backward kernels are not ported")
+    return False
+
+
+def _launch(name: str, tensors, ints, sm_scale: float, dtype: torch.dtype):
+    lib = _build.load("band_attention")
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(_P(t.data_ptr()) for t in tensors), *ints, _F(sm_scale),
+                _DTYPE_CODE[dtype], _P(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _bh_shapes(name, q, k, v, kv_bias):
+    bh, lq, dh = q.shape
+    lkv = k.shape[1]
+    if k.shape != (bh, lkv, dh) or v.shape != k.shape or kv_bias.shape != (bh, lkv):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} bias {tuple(kv_bias.shape)}")
+    return bh, lq, lkv, dh
+
+
+def _bh_fwd(name, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
+    bh, lq, lkv, dh = _bh_shapes(name, q, k, v, kv_bias)
+    if _check(name, (q, k, v), kv_bias, dh):
+        return plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
+    _launch(name, (q, k, v, kv_bias, out, lse),
+            (bh, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
+    return out, lse
+
+
+def band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
+                          causal: bool = True):
+    """B2f, the blocked online-softmax kernel. q [BH, Lq, Dh], k/v
+    [BH, Lkv, Dh], kv_bias [BH, Lkv] float32 -> out [BH, Lq, Dh], lse
+    [BH, Lq] float32."""
+    return _bh_fwd("band_attn_blocked_fwd", band_attn_blocked_fwd_plain,
+                   q, k, v, kv_bias, sm_scale, q_offset, causal)
+
+
+def band_attn_bh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
+                     causal: bool = True):
+    """B4f, the whole-tile kernel in [BH, L, Dh] layout; shapes as
+    ``band_attn_blocked_fwd``."""
+    return _bh_fwd("band_attn_bh_fwd", band_attn_bh_fwd_plain,
+                   q, k, v, kv_bias, sm_scale, q_offset, causal)
+
+
+def _mh_shapes(name, q, k, v, kv_bias, h):
+    b, lq, hdh = q.shape
+    lkv = k.shape[1]
+    if (hdh % h or k.shape != (b, lkv, hdh) or v.shape != k.shape
+            or kv_bias.shape != (b, lkv)):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} bias {tuple(kv_bias.shape)} h {h}")
+    return b, lq, lkv, hdh // h
+
+
+def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
+                     causal: bool = True, h: int = 1):
+    """B3f, the whole-tile kernel in model layout. q [B, Lq, H·Dh], k/v
+    [B, Lkv, H·Dh], kv_bias [B, Lkv] float32 shared by the heads ->
+    out [B, Lq, H·Dh], lse [B, H, Lq] float32."""
+    name = "band_attn_mh_fwd"
+    b, lq, lkv, dh = _mh_shapes(name, q, k, v, kv_bias, h)
+    if _check(name, (q, k, v), kv_bias, dh):
+        return band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset,
+                                      causal, h)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _launch(name, (q, k, v, kv_bias, out, lse),
+            (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
+    return out, lse
+
+
+def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
+                        q_offset: int, causal: bool = True, h: int = 1):
+    """B1f, the segmented-KV kernel. q [B, Lq, H·Dh]; S keys/values
+    [B, Ls, H·Dh] with s_bias [B, Ls] at positions 0..Ls-1; NS keys/values
+    [B, n, H·Dh], all valid, at positions Ls..Ls+n-1 -> out [B, Lq, H·Dh],
+    lse [B, H, Lq] float32."""
+    name = "band_attn_segkv_fwd"
+    b, lq, ls, dh = _mh_shapes(name, q, k, v, s_bias, h)
+    n = kns.shape[1]
+    if kns.shape != (b, n, h * dh) or vns.shape != kns.shape:
+        raise ValueError(f"{name}: NS shapes {tuple(kns.shape)} {tuple(vns.shape)}")
+    if _check(name, (q, k, v, kns, vns), s_bias, dh):
+        return band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale,
+                                         q_offset, causal, h)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _launch(name, (q, k, v, kns, vns, s_bias, out, lse),
+            (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)
+    return out, lse
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's public names
+# ---------------------------------------------------------------------------
+
+
+def flash_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True):
+    return band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)[0]
+
+
+def fused_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True):
+    return band_attn_bh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)[0]
+
+
+def fused_mh_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True,
+                            h=1):
+    return band_attn_mh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal, h)[0]
+
+
+def fused_mhseg_band_attention(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
+                               causal=True, h=1):
+    return band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
+                               causal, h)[0]
+
+
+# ---------------------------------------------------------------------------
+# Dispatch (predicates of the JAX package, verbatim)
+# ---------------------------------------------------------------------------
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _fused_group_for(h: int, lq: int, lkv: int) -> int:
+    """The TPU rule: largest grid group whose backward fits a 13 MB VMEM
+    budget, 0 when one row alone does not. Only its ``>= 1`` test is used
+    here, to route a shape as the JAX package routes it."""
+    lq_p = _round_up(lq, 16)
+    lkv_p = _round_up(lkv, 128) + 128  # + NS segment / slack
+    per_row = lq_p * lkv_p * 4 * 8
+    g = max(1, FUSED_GROUP // h)
+    while g > 1 and g * per_row > 13 * 2**20:
+        g //= 2
+    if g == 1 and per_row > 13 * 2**20:
+        return 0
+    return g
+
+
+def _bias(valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, 0.0, NEG_INF).float()
+
+
+def _model_layout(x: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, Dh] -> contiguous [B, L, H·Dh] (a view when it can be)."""
+    b, l, h, dh = x.shape
+    return x.reshape(b, l, h * dh).contiguous()
+
+
+def flash_attention_bhld_segkv(
+    q: torch.Tensor,    # [B, Lq, H, Dh] tail queries over the combined stream
+    k_s: torch.Tensor,  # [B, Ls, H, Dh] S-segment keys
+    v_s: torch.Tensor,
+    k_ns: torch.Tensor,  # [B, n, H, Dh] NS-segment keys (all valid)
+    v_ns: torch.Tensor,
+    s_valid: torch.Tensor,  # [B, Ls] bool
+    q_offset: int,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Segmented-KV model-layout attention; concatenates the segments and
+    takes ``flash_attention_bhld`` when the segmented kernel does not apply."""
+    b, lq, h, dh = q.shape
+    ls, n = k_s.shape[1], k_ns.shape[1]
+    sm_scale = 1.0 / float(dh) ** 0.5
+    g = _fused_group_for(h, lq, ls + n)
+    if ls + n <= FUSED_MAX_KV and dh % 128 == 0 and g >= 1:
+        out = fused_mhseg_band_attention(
+            _model_layout(q), _model_layout(k_s), _model_layout(v_s),
+            _model_layout(k_ns), _model_layout(v_ns), _bias(s_valid),
+            sm_scale, q_offset, causal, h,
+        )
+        return out.reshape(b, lq, h, dh).to(q.dtype)
+    kv_valid = torch.cat(
+        [s_valid, torch.ones((b, n), dtype=torch.bool, device=s_valid.device)], 1
+    )
+    return flash_attention_bhld(
+        q, torch.cat([k_s, k_ns], 1), torch.cat([v_s, v_ns], 1), kv_valid,
+        q_offset, causal,
+    )
+
+
+def flash_attention_bhld(
+    q: torch.Tensor,  # [B, Lq, H, Dh]  (model layout)
+    k: torch.Tensor,  # [B, Lkv, H, Dh]
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # [B, Lkv] bool
+    q_offset: int,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Model-layout band attention: the model-layout whole-tile kernel when
+    Dh % 128 == 0 and the kv fits, the [B·H, L, Dh] whole-tile kernel for
+    other head widths, and the blocked kernel for long streams."""
+    b, lq, h, dh = q.shape
+    lkv = k.shape[1]
+    sm_scale = 1.0 / float(dh) ** 0.5
+    bias1 = _bias(kv_valid)  # [B, Lkv]
+
+    g = _fused_group_for(h, lq, lkv)
+    if lkv <= FUSED_MAX_KV and dh % 128 == 0 and g >= 1:
+        out = fused_mh_band_attention(
+            _model_layout(q), _model_layout(k), _model_layout(v), bias1,
+            sm_scale, q_offset, causal, h,
+        )
+        return out.reshape(b, lq, h, dh).to(q.dtype)
+
+    bias = bias1[:, None, :].expand(b, h, lkv).reshape(b * h, lkv).contiguous()
+
+    def to_bh(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(b * h, x.shape[1], dh).contiguous()
+
+    def from_bh(out: torch.Tensor) -> torch.Tensor:
+        return out.reshape(b, h, lq, dh).transpose(1, 2).to(q.dtype)
+
+    # bh layout: one head per row, so the budget is taken at h=1
+    if lkv <= FUSED_MAX_KV and _fused_group_for(1, lq, lkv) >= 1:
+        return from_bh(fused_band_attention(
+            to_bh(q), to_bh(k), to_bh(v), bias, sm_scale, q_offset, causal))
+    return from_bh(flash_band_attention(
+        to_bh(q), to_bh(k), to_bh(v), bias, sm_scale, q_offset, causal))
