@@ -13,11 +13,13 @@ Phases, in order; any failure raises and exits non-zero:
    with CUDA events, beside the kernel's bound;
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
-   history) and C (4 heads). Each checks the KV-cache invariant
-   (``score_request`` against the full forward per candidate, in bf16 and in
-   float32), the kernels against the plain attention path end to end
-   (float32), and that each kernel's launch count moved exactly as its phase
-   predicts;
+   history) and C (4 heads), each 400 requests of 100 candidates and 20
+   batch forwards of 100 rows, timed on the host clock around each call
+   (p50 and p99, with the count beside them). Each checks the KV-cache
+   invariant (``score_request`` against the full forward per candidate, in
+   bf16 and in float32), the kernels against the plain attention path end
+   to end (float32), and that each kernel's launch count moved exactly as
+   its phase predicts;
 5. print the kernels' JSON line, then the result line.
 """
 
@@ -30,9 +32,17 @@ import time
 
 SEED = 0
 N_CANDIDATES = 100
+# requests per serving phase: enough that p99 is a tail and not the maximum
+N_REQUESTS = 400
+N_BATCH = 20  # batch_inference calls per phase
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense peaks
 PEAK_BYTES = 3.35e12
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Kernel against plain version, output error: in bf16 relative to the
+# largest reference output (|out| ~1 here, and one bf16 ulp is at most
+# 2^-7 = 7.8e-3 of a value, so this allows about one ulp: the kernel and the
+# plain version both round once from float32); in float32 absolute.
+BF16_REL_TOL = 1e-2
+F32_TOL = 1e-4
 LSE_TOL = 1e-3
 # Probabilities of two request paths. In bf16 every eager op rounds, and the
 # same path at two batch sizes already differs by up to ~6e-3 (measured on
@@ -107,24 +117,28 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def make_inputs(shape, dtype, gen):
-    """Kernel inputs at one shape: q/k/v ~ N(0, 0.5^2), keys left-padded by
-    up to a quarter of the S length per row, and, where there are several
-    rows and no NS segment, the first row's keys all padded (fully masked
-    query rows)."""
+    """Kernel inputs at one shape. q and k ~ N(0, 1.5^2), so the scaled
+    logits have std ~2.25: each softmax is peaked on a few keys and a row's
+    running maximum moves from kv tile to kv tile. v ~ N(0, 0.25^2), so an
+    output is about one value row (|out| up to ~1.2, where a bf16 ulp is
+    7.8e-3). Keys are left-padded by up to a quarter of the S length per
+    row and, where there are several rows and no NS segment, the first
+    row's keys are all padded (fully masked query rows)."""
     import torch
 
     b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
     hd = h * dh
     dev = "cuda"
-    rnd = lambda *s: (0.5 * torch.randn(*s, generator=gen, device=dev)).to(dtype)
+    rnd = lambda std, *s: (std * torch.randn(*s, generator=gen, device=dev)).to(dtype)
     pad = torch.randint(0, ls // 4 + 1, (b, 1), generator=gen, device=dev)
     valid = torch.arange(ls, device=dev)[None, :] >= pad
     if n == 0 and b > 1:
         valid[0] = False
     bias = torch.where(valid, 0.0, -1e9).float()
-    t = dict(q=rnd(b, lq, hd), k=rnd(b, ls, hd), v=rnd(b, ls, hd), bias=bias)
+    t = dict(q=rnd(1.5, b, lq, hd), k=rnd(1.5, b, ls, hd), v=rnd(0.25, b, ls, hd),
+             bias=bias)
     if n:
-        t.update(kns=rnd(b, n, hd), vns=rnd(b, n, hd))
+        t.update(kns=rnd(1.5, b, n, hd), vns=rnd(0.25, b, n, hd))
     return t
 
 
@@ -192,18 +206,21 @@ def check_kernels(fa):
                 torch.cuda.synchronize()
                 ref, ref_lse = call(name, t, shape, fa, plain=True)
                 err = (out.float() - ref.float()).abs().max().item()
+                ref_max = ref.float().abs().max().item()
                 live = ref_lse > -1e8  # rows with a valid key
                 lse_err = (lse - ref_lse)[live].abs().max().item()
                 assert torch.isfinite(out).all(), f"{name} {shape}: non-finite output"
                 assert bool((lse[~live] < -1e8).all()), f"{name}: masked-row lse"
-                assert err <= TOL[dn], f"{name} {shape} {dn}: out err {err}"
+                limit = BF16_REL_TOL * ref_max if dn == "bfloat16" else F32_TOL
+                assert err <= limit, f"{name} {shape} {dn}: out err {err} > {limit}"
                 assert lse_err <= LSE_TOL, f"{name} {shape} {dn}: lse err {lse_err}"
                 ms = cuda_ms(lambda: call(name, t, shape, fa), 20)
                 plain_ms = cuda_ms(lambda: call(name, t, shape, fa, plain=True), 5)
                 lib_ms = cuda_ms(library_call(t, shape), 20)
                 b_ms, b_by = bound(t, out, lse, shape, dn)
-                log(f"kernel {name} {dn} {shape}: max_abs_err {err:.3g} lse_err "
-                    f"{lse_err:.3g} | {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                log(f"kernel {name} {dn} {shape}: max_abs_err {err:.3g} "
+                    f"(max|ref| {ref_max:.3g}) lse_err {lse_err:.3g} | {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, "
                     f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
                     f"[{CARD}]")
                 if i == 0 and dtype == torch.bfloat16:
@@ -267,8 +284,8 @@ def max_diff(a, b, tasks):
     return max(abs(x[t] - y[t]) for x, y in zip(a, b) for t in tasks)
 
 
-def serve_phase(label, heads, max_seq_len, history, n_requests, per_score,
-                per_batch, fa, totals):
+def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
+                totals):
     import dataclasses
 
     import numpy as np
@@ -291,7 +308,7 @@ def serve_phase(label, heads, max_seq_len, history, n_requests, per_score,
     engine.warmup(N_CANDIDATES)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    reqs = make_requests(cfg, np.random.default_rng(SEED), n_requests, history)
+    reqs = make_requests(cfg, np.random.default_rng(SEED), N_REQUESTS, history)
 
     lat = []
 
@@ -303,15 +320,19 @@ def serve_phase(label, heads, max_seq_len, history, n_requests, per_score,
             lat.append((time.perf_counter() - t) * 1e3)
         return outs
 
-    outs, got_s = counted(fa, serve_all, per_score, n_requests)
+    outs, got_s = counted(fa, serve_all, per_score, N_REQUESTS)
     user, seqs, cands = reqs[0]
     rows = [(dict(user, **c), seqs) for c in cands]
-    n_batch = 3
-    t = time.perf_counter()
-    batch, got_b = counted(fa, lambda: [engine.batch_inference(rows)
-                                        for _ in range(n_batch)][-1],
-                           per_batch, n_batch)
-    batch_ms = (time.perf_counter() - t) * 1e3 / n_batch
+    batch_lat = []
+
+    def batch_all():
+        for _ in range(N_BATCH):
+            t = time.perf_counter()
+            out = engine.batch_inference(rows)
+            batch_lat.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    batch, got_b = counted(fa, batch_all, per_batch, N_BATCH)
     for k in got_s:
         totals[k] += got_s[k] + got_b[k]
 
@@ -337,9 +358,11 @@ def serve_phase(label, heads, max_seq_len, history, n_requests, per_score,
     assert kv32_err <= F32_PATH_TOL, f"{label}: f32 score_request vs batch {kv32_err}"
     assert path_err <= F32_PATH_TOL, f"{label}: f32 kernels vs plain path {path_err}"
     p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+    b50 = np.percentile(batch_lat, 50)
     log(f"phase {label}: heads {heads}, window {max_seq_len}, history {history}/feature, "
-        f"{n_requests} x {N_CANDIDATES} candidates | score_request p50 {p50:.3f} ms "
-        f"p99 {p99:.3f} ms, batch_inference({N_CANDIDATES}) {batch_ms:.3f} ms | "
+        f"{N_CANDIDATES} candidates | score_request n={len(lat)} p50 {p50:.3f} ms "
+        f"p99 {p99:.3f} ms, batch_inference({N_CANDIDATES}) n={len(batch_lat)} p50 "
+        f"{b50:.3f} ms | "
         f"launches score {got_s} batch {got_b} | bf16 cached-vs-full {kv_err:.2e}, "
         f"vs single {single_err:.2e}; f32 cached-vs-full {kv32_err:.2e}, "
         f"kernels-vs-plain {path_err:.2e} | setup {setup_s:.1f} s [{CARD}]")
@@ -366,7 +389,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    lib = _build.build(["band_attention"])["band_attention"]
+    lib = _build.build("band_attention")
     log(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
@@ -375,12 +398,12 @@ def main() -> int:
     entries = check_kernels(fa)
     totals = {name: 0 for name in fa.LAUNCHES}
     # per call: score_request (encode_s) and batch_inference (full forward)
-    serve_phase("A", 2, 64, 48, 20,
+    serve_phase("A", 2, 64, 48,
                 {"band_attn_mh_fwd": 1}, {"band_attn_segkv_fwd": 1}, fa, totals)
-    serve_phase("B", 2, 400, 400, 5,
+    serve_phase("B", 2, 400, 400,
                 {"band_attn_blocked_fwd": 1, "band_attn_mh_fwd": 3},
                 {"band_attn_blocked_fwd": 1, "band_attn_segkv_fwd": 3}, fa, totals)
-    serve_phase("C", 4, 64, 48, 10,
+    serve_phase("C", 4, 64, 48,
                 {"band_attn_bh_fwd": 1}, {"band_attn_bh_fwd": 1}, fa, totals)
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"

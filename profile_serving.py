@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
 """Where a ranking request's time goes on the card, per chip_smoke phase.
 
-    python3 profile_serving.py [--requests N]     # from the repository root
+    python3 profile_serving.py     # from the repository root; one CUDA card
 
 For each of chip_smoke's serving phases (A, B, C: same configs, weights and
-requests) it warms the engine, then traces ``score_request`` and one
-``batch_inference`` of 100 rows with ``torch.profiler`` and prints, per
-request: wall time, device busy time (the sum of kernel times), the idle
-share of the card, the number of kernels launched, the band-attention
-kernels' share of device time, and the kernels that took most device time.
-Needs one CUDA card.
+first request) it warms the engine, times ``score_request`` and
+``batch_inference`` of 100 rows unprofiled (median of many calls on the host
+clock), then traces a few calls of each with ``torch.profiler`` and prints,
+per call: the unprofiled wall time, the profiled wall time, device busy time
+(the sum of kernel times in the trace), the card's idle share against the
+unprofiled wall time, the number of kernels launched, the band-attention
+kernels' device time, and the kernels that took most device time.
 """
 
 from __future__ import annotations
 
-import argparse
 import time
 from collections import defaultdict
 
@@ -27,6 +27,9 @@ from recommend_tpu_torch.convert import init_params
 from recommend_tpu_torch.serving.ranking_service import RankingInferenceEngine
 
 PHASES = (("A", 2, 64, 48), ("B", 2, 400, 400), ("C", 4, 64, 48))
+# calls per measurement: (unprofiled, traced)
+N_SCORE = (200, 10)
+N_BATCH = (20, 2)
 
 
 def device_kernels(prof):
@@ -36,6 +39,18 @@ def device_kernels(prof):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             out.append((ev.name, ev.time_range.elapsed_us()))
     return out
+
+
+def wall_p50(fn, n):
+    """Median host-clock time of ``n`` unprofiled calls, in ms."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.percentile(times, 50))
 
 
 def trace(fn, n):
@@ -49,24 +64,25 @@ def trace(fn, n):
     return wall_ms, device_kernels(prof)
 
 
-def report(label, what, wall_ms, kernels, n):
+def measure(label, what, fn, counts):
+    n_wall, n = counts
+    wall = wall_p50(fn, n_wall)
+    traced_wall, kernels = trace(fn, n)
     busy = sum(us for _, us in kernels) / 1e3 / n
     by_name = defaultdict(float)
     for name, us in kernels:
         by_name[name] += us / 1e3 / n
     band = sum(ms for name, ms in by_name.items() if "band_attn" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"{label} {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
-          f"idle {1 - busy / wall_ms:.1%}, {len(kernels) / n:.0f} kernels, "
+    print(f"{label} {what}: wall p50 {wall:.3f} ms (n={n_wall}), profiled wall "
+          f"{traced_wall:.3f} ms, device busy {busy:.3f} ms (n={n}), idle "
+          f"{1 - busy / wall:.1%}, {len(kernels) / n:.0f} kernels, "
           f"band_attn {band:.3f} ms")
     for name, ms in top:
         print(f"    {ms:8.4f} ms  {name[:110]}")
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--requests", type=int, default=10)
-    args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line())
     for label, heads, window, history in PHASES:
@@ -78,10 +94,10 @@ def main() -> int:
         user, seqs, cands = chip_smoke.make_requests(
             cfg, np.random.default_rng(chip_smoke.SEED), 1, history)[0]
         rows = [(dict(user, **c), seqs) for c in cands]
-        wall, ks = trace(lambda: engine.score_request(user, seqs, cands), args.requests)
-        report(label, "score_request", wall, ks, args.requests)
-        wall, ks = trace(lambda: engine.batch_inference(rows), 2)
-        report(label, "batch_inference", wall, ks, 2)
+        measure(label, "score_request",
+                lambda: engine.score_request(user, seqs, cands), N_SCORE)
+        measure(label, "batch_inference", lambda: engine.batch_inference(rows),
+                N_BATCH)
         del engine
         torch.cuda.empty_cache()
     return 0

@@ -20,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RankingConfig
 from recommend_tpu_torch.models.ranking import RankingModel
 
@@ -97,10 +98,11 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_params(cfg: RankingConfig, seed: int = 0,
-                device="cpu") -> Dict[str, torch.Tensor]:
+                device=None) -> Dict[str, torch.Tensor]:
     """A fresh state dict for ``RankingModel(cfg)``, drawn on ``device`` from
-    a ``torch.Generator`` seeded with ``seed``."""
-    device = torch.device(device)
+    a ``torch.Generator`` seeded with ``seed``. ``device`` is CUDA unless the
+    caller names another; with none named and no CUDA available it raises."""
+    device = resolve_device(device, "init_params")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.device("meta"):

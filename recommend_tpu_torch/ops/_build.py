@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -45,35 +45,26 @@ def library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(stems: Iterable[str]) -> Dict[str, Path]:
-    """Compile every listed source that has no current library, all at once
-    (one nvcc process per source). Returns the library path of each stem.
-    The ptxas report (registers, shared memory, spills) lands beside each
-    library as ``.log``."""
-    stems = list(stems)
-    paths = {s: library_path(s) for s in stems}
-    todo = [s for s in stems if not paths[s].exists()]
-    if not todo:
-        return paths
+def build(stem: str) -> Path:
+    """Compile ``csrc/<stem>.cu`` unless its current library exists, and
+    return the library's path. The ptxas report (registers, shared memory,
+    spills) lands beside the library as ``.log``."""
+    path = library_path(stem)
+    if path.exists():
+        return path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for s in todo:
-        tmp = paths[s].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{s}.cu")]
-        procs[s] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for s, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        paths[s].with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{s}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, paths[s])
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return paths
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    path.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"kernel build failed: {stem}.cu (nvcc exit {proc.returncode}):\n"
+            f"{proc.stdout}")
+    os.replace(tmp, path)
+    return path
 
 
 def load(stem: str) -> ctypes.CDLL:
@@ -81,6 +72,6 @@ def load(stem: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(str(build([stem])[stem]))
+            lib = ctypes.CDLL(str(build(stem)))
             _loaded[stem] = lib
         return lib

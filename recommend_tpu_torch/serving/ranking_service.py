@@ -20,6 +20,7 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RankingConfig
 from recommend_tpu_torch.models.ranking import RankingModel
 
@@ -33,16 +34,6 @@ def _bucket(n: int) -> int:
     return b
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "RankingInferenceEngine: no CUDA device; pass device='cpu' "
-                "to serve on the CPU")
-        device = "cuda"
-    return torch.device(device)
-
-
 class RankingInferenceEngine:
     def __init__(
         self,
@@ -54,7 +45,7 @@ class RankingInferenceEngine:
         """``params``: a state dict of ``RankingModel(cfg)`` (from
         ``convert.params_from_flax`` or ``convert.init_params``)."""
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "RankingInferenceEngine")
         with torch.device("meta"):
             model = RankingModel(cfg)
         model.load_state_dict(

@@ -3,7 +3,8 @@
 - ``recommend_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor flax,
   optax, orbax) nor anything of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
-- the engine runs on CUDA unless told otherwise, and raises without it;
+- the engine and the initializer run on CUDA unless told otherwise, and
+  raise without it;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises.
 """
@@ -74,12 +75,25 @@ def test_engine_without_cuda_raises_unless_told_cpu(monkeypatch):
     from tests.test_torch_ranking import port_config
 
     cfg = port_config(_tiny_cfg())
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RankingInferenceEngine(cfg, params)
     engine = RankingInferenceEngine(cfg, params, device="cpu")
     assert next(engine.model.parameters()).device.type == "cpu"
+
+
+def test_init_params_without_cuda_raises_unless_told_cpu(monkeypatch):
+    from recommend_tpu_torch.convert import init_params
+    from __graft_entry__ import _tiny_cfg
+    from tests.test_torch_ranking import port_config
+
+    cfg = port_config(_tiny_cfg())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="init_params: no CUDA device"):
+        init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, device="cpu")
+    assert all(t.device.type == "cpu" for t in params.values())
 
 
 def test_cuda_entry_points_match_their_bindings():
@@ -102,6 +116,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["band_attention"])
+        _build.build("band_attention")
     path = _build.library_path("band_attention")
     assert path.name.startswith("libband_attention-") and path.suffix == ".so"

@@ -233,8 +233,9 @@ def test_mixed_precision_forward_tracks_float32(tiny):
 
 def test_init_params_is_seeded_and_complete():
     cfg = port_config(_tiny_cfg())
-    a, b = init_params(cfg, seed=3), init_params(cfg, seed=3)
-    c = init_params(cfg, seed=4)
+    a = init_params(cfg, seed=3, device="cpu")
+    b = init_params(cfg, seed=3, device="cpu")
+    c = init_params(cfg, seed=4, device="cpu")
     ref = RankingModel(cfg).state_dict()
     assert set(a) == set(ref)
     assert all(a[k].shape == ref[k].shape for k in ref)
