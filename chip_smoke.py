@@ -6,11 +6,15 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the band-attention kernels from csrc/ with nvcc (sm_90a);
-3. hold each of the four kernels against its plain PyTorch version at the
-   serving shapes, in bf16 and f32, and time kernel, plain version and
+2. build the band-attention kernels from csrc/ with nvcc (sm_90a), one
+   nvcc per source, all at once;
+3. hold each of the four forward kernels against its plain PyTorch version
+   at the serving shapes (and the bh kernel at Dh 96, ranking_base's head
+   width), in bf16 and f32, and time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   with CUDA events, beside the kernel's bound;
+   with CUDA events, beside the kernel's bound; then the same for the four
+   backward kernels at the training shapes, against their plain backward
+   and SDPA's backward;
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -20,7 +24,16 @@ Phases, in order; any failure raises and exits non-zero:
    bf16 and in float32), the kernels against the plain attention path end
    to end (float32), and that each kernel's launch count moved exactly as
    its phase predicts;
-5. print the kernels' JSON line, then the result line.
+5. train at bench.py's OneTrans-S widths (``RankingTrainer``, rowwise sparse
+   adagrad, rmsprop with momentum, bf16, dropout 0, random weights from a
+   seed): TA (bench.py's exact config), TB (400 items per sequence, the
+   blocked kernels at layer 0) and TC (4 heads, Dh 64), each a few warm-up
+   steps and N_TRAIN timed steps on the host clock (p50, p99, n, examples/s,
+   the losses). Each asserts a finite loss at every step, its launch counts
+   exactly, and, in float32 on one batch, that one step through the kernels
+   agrees with one step through the plain attention path (loss, dense
+   gradient norm, table updates);
+6. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -35,6 +48,9 @@ N_CANDIDATES = 100
 # requests per serving phase: enough that p99 is a tail and not the maximum
 N_REQUESTS = 400
 N_BATCH = 20  # batch_inference calls per phase
+# training steps per phase: warm-up, then timed
+N_TRAIN_WARMUP = 3
+N_TRAIN = 20
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense peaks
 PEAK_BYTES = 3.35e12
 # Kernel against plain version, output error: in bf16 relative to the
@@ -52,6 +68,14 @@ LSE_TOL = 1e-3
 BF16_BATCH_TOL = 1e-2
 BF16_SINGLE_TOL = 5e-3
 F32_PATH_TOL = 1e-4
+# One float32 training step through the kernels against one through the
+# plain attention path, same params and batch: the loss and the dense
+# gradient norm relative to their value, the table updates relative to the
+# largest update of each table. Measured on the H100: loss 0, norm <= 2.3e-7,
+# table updates <= 6.2e-6; the limits leave about 16x.
+F32_STEP_LOSS_TOL = 1e-6
+F32_STEP_NORM_TOL = 4e-6
+F32_STEP_TABLE_TOL = 1e-4
 CARD = ""
 
 # (name, JAX kernel body it replaces, shapes on the main path). The first
@@ -66,6 +90,8 @@ KERNELS = [
         # phase C batch_inference (B=128, H=4) and score_request, layer 0
         dict(b=512, h=1, lq=103, ls=206, n=0, dh=64),
         dict(b=4, h=1, lq=91, ls=194, n=0, dh=64),
+        # ranking_base's head width (384 / 4 heads), training layer 0 shape
+        dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
     ]),
     ("band_attn_mh_fwd", "recommend_tpu/ops/pallas/flash_attention.py:620", [
         # encode_s: phase B layers 1-3, phase A layer 0
@@ -181,12 +207,8 @@ def bound(t, out, lse, shape, dtype_name):
     """Least time for the call: every input read once and every output
     written once at the memory rate, or the in-band work (4·Dh flops per
     query row and key it may see) at the peak rate of the input type."""
-    b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
-    total = ls + n
     nbytes = sum(x.numel() * x.element_size() for x in (*t.values(), out, lse))
-    off = total - lq
-    pairs = sum(min(total, off + r + 1) for r in range(lq)) * b * h
-    flops = 4.0 * dh * pairs
+    flops = 4.0 * shape["dh"] * band_pairs(shape)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -234,6 +256,149 @@ def check_kernels(fa):
                     }
                 del t, out, lse, ref, ref_lse
     torch.cuda.empty_cache()
+    return entries
+
+
+# (name, JAX kernel body it replaces, training shapes; the first one is
+# reported in the JSON line), checked against the plain backward
+BWD_KERNELS = [
+    ("band_attn_segkv_bwd", "recommend_tpu/ops/pallas/flash_attention.py:912", [
+        # phase TA layer 0 (batch 512, 2 heads)
+        dict(b=512, h=2, lq=181, ls=350, n=12, dh=128),
+    ]),
+    ("band_attn_blocked_bwd_dq", "recommend_tpu/ops/pallas/flash_attention.py:102", [
+        # phase TB layer 0 (batch 128 x 2 heads)
+        dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
+    ]),
+    ("band_attn_blocked_bwd_dkv", "recommend_tpu/ops/pallas/flash_attention.py:142", [
+        dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
+    ]),
+    ("band_attn_bh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:420", [
+        # phase TC layer 0 (batch 512 x 4 heads), then ranking_base's Dh 96
+        dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64),
+        dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
+    ]),
+]
+# flops per (row, key) pair in the band: the dq pass recomputes s and dp and
+# forms dQ (3 products), the dkv pass s, dp, dV and dK (4); the one-kernel
+# backwards do the five products of the function (2.5x the forward's 4 Dh)
+BWD_FLOPS_PER_DH = {"band_attn_blocked_bwd_dq": 6, "band_attn_blocked_bwd_dkv": 8,
+                    "band_attn_bh_bwd": 10, "band_attn_segkv_bwd": 10}
+
+
+def band_pairs(shape) -> int:
+    """(query row, key) pairs inside the causal band, over batch and heads."""
+    b, h, lq, ls, n = (shape[k] for k in ("b", "h", "lq", "ls", "n"))
+    total = ls + n
+    off = total - lq
+    return sum(min(total, off + r + 1) for r in range(lq)) * b * h
+
+
+def bwd_inputs(name, shape, dtype, gen, fa):
+    """make_inputs' tensors plus dO ~ N(0, 1) and the forward's out, lse
+    and delta (from the forward kernel)."""
+    import torch
+
+    t = make_inputs(shape, dtype, gen)
+    t["do"] = torch.randn(t["q"].shape, generator=gen, device="cuda").to(dtype)
+    fwd = "band_attn_segkv_fwd" if name == "band_attn_segkv_bwd" else "band_attn_bh_fwd"
+    out, lse = call(fwd, t, shape, fa)
+    t["lse"] = lse
+    t["delta"] = fa._delta(out, t["do"], shape["h"] if shape["n"] else 0)
+    return t
+
+
+def bwd_call(name, t, shape, fa, plain=False):
+    off, scale = shape["ls"] + shape["n"] - shape["lq"], 1.0 / shape["dh"] ** 0.5
+    fn = getattr(fa, name + ("_plain" if plain else ""))
+    if name == "band_attn_segkv_bwd":
+        out = fn(t["q"], t["k"], t["v"], t["kns"], t["vns"], t["bias"], t["do"],
+                 t["lse"], t["delta"], scale, off, True, shape["h"])
+    else:
+        out = fn(t["q"], t["k"], t["v"], t["bias"], t["do"], t["lse"], t["delta"],
+                 scale, off, True)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def library_bwd(name, t, shape):
+    """The backward of one F.scaled_dot_product_attention over the same
+    inputs and mask: autograd.grad of its output with dO, for the inputs
+    whose gradients the kernel computes (the forward runs once, outside the
+    timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
+    total = ls + n
+    heads = lambda x: x.view(b, x.shape[1], h, dh).transpose(1, 2).detach()
+    k, v, bias = t["k"], t["v"], t["bias"]
+    if n:
+        k, v = torch.cat([k, t["kns"]], 1), torch.cat([v, t["vns"]], 1)
+        bias = torch.cat([bias, bias.new_zeros(b, n)], 1)
+    q_pos = total - lq + torch.arange(lq, device="cuda")
+    band = torch.where(torch.arange(total, device="cuda")[None, :] <= q_pos[:, None],
+                       0.0, -1e9)
+    mask = (bias[:, None, None, :] + band[None, None]).to(t["q"].dtype)
+    q, k, v = (heads(x).requires_grad_(True) for x in (t["q"], k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0 / dh ** 0.5)
+    do = heads(t["do"])
+    wrt = {"band_attn_blocked_bwd_dq": (q,), "band_attn_blocked_bwd_dkv": (k, v)}.get(
+        name, (q, k, v))
+    return lambda: torch.autograd.grad(out, wrt, do, retain_graph=True)
+
+
+def check_backward_kernels(fa):
+    """Each backward kernel against its plain backward at the training
+    shapes, in bf16 (about one ulp: 1e-2 of each output's max|ref|) and f32
+    (1e-4 of max|ref|), with its time, the plain and SDPA-backward times and
+    its bound. Measured on the H100: no difference at all, in both types
+    (kernel and plain version accumulate over keys in the same order at the
+    same rounding points), so the limits guard against a changed order."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    entries = {}
+    for name, replaces, shapes in BWD_KERNELS:
+        for i, shape in enumerate(shapes):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                t = bwd_inputs(name, shape, dtype, gen, fa)
+                got = bwd_call(name, t, shape, fa)
+                torch.cuda.synchronize()
+                ref = bwd_call(name, t, shape, fa, plain=True)
+                rel = 0.0
+                for g, r in zip(got, ref):
+                    assert torch.isfinite(g).all(), f"{name} {shape}: non-finite gradient"
+                    r_max = r.float().abs().max().item()
+                    rel = max(rel, (g.float() - r.float()).abs().max().item() / r_max)
+                limit = BF16_REL_TOL if dn == "bfloat16" else F32_TOL
+                assert rel <= limit, f"{name} {shape} {dn}: rel err {rel} > {limit}"
+                ms = cuda_ms(lambda: bwd_call(name, t, shape, fa), 10)
+                plain_ms = cuda_ms(lambda: bwd_call(name, t, shape, fa, plain=True), 3)
+                lib_ms = cuda_ms(library_bwd(name, t, shape), 10)
+                nbytes = sum(x.numel() * x.element_size()
+                             for x in (*t.values(), *got))
+                flops = BWD_FLOPS_PER_DH[name] * shape["dh"] * band_pairs(shape)
+                t_ops, t_bytes = flops / PEAK_FLOPS[dn], nbytes / PEAK_BYTES
+                b_ms = max(t_ops, t_bytes) * 1e3
+                b_by = "operations" if t_ops >= t_bytes else "bytes"
+                log(f"kernel {name} {dn} {shape}: max rel err {rel:.3g} | {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}) [{CARD}]")
+                if i == 0 and dtype == torch.bfloat16:
+                    entries[name] = {
+                        "name": name, "route": "cuda",
+                        "source": "recommend_tpu_torch/csrc/band_attention_bwd.cu",
+                        "replaces": replaces, "launches": 0, "max_abs_err": max(
+                            (g.float() - r.float()).abs().max().item()
+                            for g, r in zip(got, ref)),
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms,
+                        "shape": shape, "dtype": dn,
+                    }
+                del t, got, ref
+                torch.cuda.empty_cache()
     return entries
 
 
@@ -370,6 +535,112 @@ def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+# (label, heads, items per sequence, batch, kernel launches per step)
+TRAIN_PHASES = [
+    ("TA", 2, 116, 512, {"band_attn_segkv_fwd": 3, "band_attn_segkv_bwd": 3}),
+    ("TB", 2, 400, 128, {"band_attn_blocked_fwd": 1, "band_attn_blocked_bwd_dq": 1,
+                         "band_attn_blocked_bwd_dkv": 1, "band_attn_segkv_fwd": 3,
+                         "band_attn_segkv_bwd": 3}),
+    ("TC", 4, 116, 512, {"band_attn_bh_fwd": 3, "band_attn_bh_bwd": 3}),
+]
+
+
+def training_config(num_heads: int, batch_size: int, **overrides):
+    """bench.py's OneTrans-S training config (bench.py:35-67) at the given
+    head count and batch."""
+    import dataclasses
+
+    return dataclasses.replace(
+        serving_config(num_heads), batch_size=batch_size, use_remat=False,
+        use_sparse_embedding_updates=True, sparse_update_mode="rowwise",
+        dense_lr=1e-3, dense_momentum=0.9, sparse_lr=0.05, **overrides)
+
+
+def f32_step_check(label, cfg, params, batch):
+    """One float32 step through the kernels and one through the plain
+    attention path from the same params on the same batch -> (loss, grad
+    norm, table update) relative differences."""
+    import dataclasses
+
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    results = []
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, use_mixed_precision=False, use_flash_attention=flash)
+        trainer = RankingTrainer(c, device="cuda")
+        state = trainer.init_state(params)
+        state, m = trainer._train_step(state, trainer._put_batch(batch))
+        updates = {n: state.params[n] - params[n] for n in trainer.tables}
+        results.append((float(m["loss"]), float(m["grad_norm"]), updates))
+        del trainer, state
+    (l1, n1, u1), (l2, n2, u2) = results
+    loss_err = abs(l1 - l2) / abs(l2)
+    norm_err = abs(n1 - n2) / abs(n2)
+    table_err = max(((u1[k] - u2[k]).abs().max() / u2[k].abs().max()).item() for k in u2)
+    assert loss_err <= F32_STEP_LOSS_TOL, f"{label}: f32 loss {l1} vs plain {l2}"
+    assert norm_err <= F32_STEP_NORM_TOL, f"{label}: f32 grad norm {n1} vs plain {n2}"
+    assert table_err <= F32_STEP_TABLE_TOL, f"{label}: f32 table updates differ {table_err}"
+    return loss_err, norm_err, table_err
+
+
+def train_phase(label, heads, items, batch_size, per_step, fa, totals):
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    t0 = time.perf_counter()
+    cfg = training_config(heads, batch_size)
+    data = make_ranking_data(cfg, num_samples=4 * batch_size,
+                             max_seq_per_feature=items, seed=SEED)
+    it = ranking_batches(data, cfg, batch_size=batch_size, seed=SEED)
+    host_batches = [next(it) for _ in range(4)]
+    params = init_params(cfg, seed=SEED, device="cuda")
+    trainer = RankingTrainer(cfg, device="cuda")
+    state = trainer.init_state(params)
+    batches = [trainer._put_batch(b) for b in host_batches]
+    for i in range(N_TRAIN_WARMUP):
+        state, m = trainer._train_step(state, batches[i % len(batches)])
+        assert np.isfinite(float(m["loss"])), f"{label}: warm-up loss {m['loss']}"
+    setup_s = time.perf_counter() - t0
+
+    times, losses = [], []
+
+    def run():
+        nonlocal state
+        for i in range(N_TRAIN):
+            t = time.perf_counter()
+            state, m = trainer._train_step(state, batches[i % len(batches)])
+            loss = float(m["loss"])  # waits for the step
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss)
+
+    _, got = counted(fa, run, per_step, N_TRAIN)
+    for k in got:
+        totals[k] += got[k]
+    assert all(np.isfinite(losses)), f"{label}: non-finite loss {losses}"
+    del trainer, state
+    torch.cuda.empty_cache()
+    errs = f32_step_check(label, cfg, params, host_batches[0])
+    p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
+    ex_s = batch_size * len(times) / (sum(times) / 1e3)
+    log(f"phase {label}: heads {heads}, {items} items/sequence, batch {batch_size} | "
+        f"train step n={len(times)} p50 {p50:.3f} ms p99 {p99:.3f} ms, {ex_s:.1f} "
+        f"examples/s | loss first {losses[0]:.4f} last {losses[-1]:.4f} mean "
+        f"{np.mean(losses):.4f} | launches {got} | f32 kernels-vs-plain step: loss "
+        f"{errs[0]:.2e}, grad norm {errs[1]:.2e}, table update {errs[2]:.2e} | setup "
+        f"{setup_s:.1f} s [{CARD}]")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     global CARD
     import torch
@@ -389,13 +660,15 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     t = time.perf_counter()
-    lib = _build.build("band_attention")
-    log(f"built {lib.name} in {time.perf_counter() - t:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas " + line.strip())
+    libs = _build.build_all()
+    log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {lib.stem.split('-')[0]}: " + line.strip())
 
     entries = check_kernels(fa)
+    entries.update(check_backward_kernels(fa))
     totals = {name: 0 for name in fa.LAUNCHES}
     # per call: score_request (encode_s) and batch_inference (full forward)
     serve_phase("A", 2, 64, 48,
@@ -405,12 +678,14 @@ def main() -> int:
                 {"band_attn_blocked_fwd": 1, "band_attn_segkv_fwd": 3}, fa, totals)
     serve_phase("C", 4, 64, 48,
                 {"band_attn_bh_fwd": 1}, {"band_attn_bh_fwd": 1}, fa, totals)
+    for label, heads, items, batch_size, per_step in TRAIN_PHASES:
+        train_phase(label, heads, items, batch_size, per_step, fa, totals)
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n
     torch.cuda.synchronize()
 
-    print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS]}))
+    print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS + BWD_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,12 +10,18 @@ norm scales, tables and [SEP] token keep their layout.
 ``init_params`` draws a fresh state dict from a ``torch.Generator`` where no
 JAX is at hand: lecun-normal projections, normal(0.02) tables and [SEP],
 zero biases, unit norm scales, and the configured constant head bias.
+
+The trainer's state carries across too: ``params_from_flax`` maps the
+parameters, ``accums_from_flax`` the sparse-update accumulators (keyed by
+the flax table names ``embed_<feature>`` / ``embed_seq_item`` there, by the
+port's table parameter names here). The dense optimizer's moments start at
+zero on both sides, so the two trainers start from one state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +32,26 @@ from recommend_tpu_torch.models.ranking import RankingModel
 
 _BLOCK_STACKS = ("q_ns", "k_ns", "v_ns", "ffn_ns_in", "ffn_ns_in_b",
                  "ffn_ns_out", "ffn_ns_out_b")
+
+
+def table_param_names(cfg: RankingConfig) -> Tuple[str, ...]:
+    """The id tables' state-dict names: one per non-sequence feature, then
+    the shared item table when the config has behavior sequences."""
+    names = tuple(f"tokenizer.embeds.{f}.weight" for f in cfg.non_seq_features)
+    return names + (("tokenizer.item_embed.weight",) if cfg.sequence_features else ())
+
+
+def _flax_table_key(name: str) -> str:
+    if name == "tokenizer.item_embed.weight":
+        return "embed_seq_item"
+    return "embed_" + name.split(".")[2]
+
+
+def accums_from_flax(accums: Mapping, cfg: RankingConfig) -> Dict[str, torch.Tensor]:
+    """The JAX trainer's sparse-update accumulators (``opt_state[1]``, keyed
+    ``embed_<feature>`` / ``embed_seq_item``) -> the port trainer's, keyed by
+    table parameter name."""
+    return {name: _t(accums[_flax_table_key(name)]) for name in table_param_names(cfg)}
 
 
 def _t(x) -> torch.Tensor:

@@ -44,12 +44,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "band_attention_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
-constexpr int NT = 256;      // threads per block: 16 row groups x 16 lanes
-constexpr float NEG_INF = -1e9f;
+using namespace band_attn;
 
 struct Args {
   const void* q; long long q_bs, q_hs, q_rs;        // element strides
@@ -61,20 +60,6 @@ struct Args {
   int H, Lq, L1, L2, q_offset, causal;
   float sm_scale;
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// p cast to the value dtype before the PV product (flash_attention.py:90,413)
-template <typename T> __device__ __forceinline__ float round_v(float x) {
-  return to_f(from_f<T>(x));
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -184,7 +169,8 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        sp[(tr * 4 + i) * PS + tc + 16 * j] = round_v<T>(p);
+        // p cast to the value dtype before PV (flash_attention.py:90,413)
+        sp[(tr * 4 + i) * PS + tc + 16 * j] = round_to<T>(p);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -248,13 +234,12 @@ cudaError_t launch_t(const Args& a, int B, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
+#define BAND_ATTN_CASE(D) case D: return launch_t<T, D>(a, B, stream);
   switch (dh) {
-    case 16: return launch_t<T, 16>(a, B, stream);
-    case 32: return launch_t<T, 32>(a, B, stream);
-    case 64: return launch_t<T, 64>(a, B, stream);
-    case 128: return launch_t<T, 128>(a, B, stream);
+    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
     default: return cudaErrorInvalidValue;
   }
+#undef BAND_ATTN_CASE
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.

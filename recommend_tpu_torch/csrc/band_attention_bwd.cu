@@ -1,0 +1,552 @@
+// Band-masked attention backward kernels for Hopper (sm_90a).
+//
+// Four entry points, one per Pallas backward kernel of
+// recommend_tpu/ops/pallas/flash_attention.py that a training step reaches:
+//
+//   band_attn_blocked_bwd_dq   replaces _dq_kernel         (flash_band_attention, B2dq)
+//   band_attn_blocked_bwd_dkv  replaces _dkv_kernel        (flash_band_attention, B2dkv)
+//   band_attn_bh_bwd           replaces _fused_bwd_kernel  (fused_band_attention, B4b)
+//   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel (fused_mhseg_band_attention, B1b)
+//
+// What they compute, given the forward's inputs, its per-row logsumexp lse,
+// the output gradient dO and delta = rowsum(out * dO) in float32: for query
+// row r (position q_offset + r) and key j,
+//   s    = (q . k) * sm_scale + bias[j] (+ -1e9 if causal and j > q_offset + r)
+//   p    = exp(s - lse[r])                       recomputed, never stored
+//   dp   = dO[r] . v[j]                          float32
+//   dS   = round_k(p * (dp - delta[r]) * sm_scale)
+//   dQ   = sum_j dS k[j],   dK[j] = sum_r dS q[r],   dV[j] = sum_r round_do(p) dO[r]
+// with float32 accumulation and each output stored in the input dtype;
+// round_do and round_k cast to dO's and k's dtype (the inputs share one), the
+// rounding points of the Pallas kernels. The segmented form joins a second
+// key/value segment (the NS tokens, all valid, no bias) at positions
+// L1..L1+L2-1 and writes its gradients into separate tensors, so the joined
+// keys are never copied. Keys past the end and rows past Lq are excluded.
+//
+// Design: two passes in the style of FlashAttention-2, with no atomics.
+// - dq pass: one block per (batch, head, 64-row query tile); it loops over the
+//   64-key tiles up to the band edge of its last row (tiles wholly above the
+//   band are skipped, as _run_block does), computes dp from the V tile, then
+//   p and dS from the K tile, and accumulates dQ in registers.
+// - dkv pass: one block per (batch, head, 64-key tile); it holds K and V in
+//   shared memory and loops over the query tiles that can see its keys (the
+//   band starts at row key0 - q_offset), staging Q and dO, then P^T for dV and
+//   dS^T for dK in shared memory; dK and dV accumulate in registers.
+// Both recompute p tile by tile, so [Lq, Lkv] never reaches device memory.
+//
+// What bounds it on the H100: at the training shapes (Dh 64/128, a few
+// hundred keys, hundreds of batch rows) the work is five matrix products,
+// 10 * Dh flops per (row, key) pair in the band (the dq and dkv passes
+// recompute s and dp, 14 * Dh together), against (3 Lq + 3 Lkv) * Dh
+// elements moved, so it should be bound by operations. This first version
+// does them as float32 FMAs on the CUDA cores (67 TF/s peak) with 116 KB
+// (dq) and 149 KB (dkv) of shared memory at Dh 128, one block per SM; the
+// tensor cores (wgmma) and TMA-fed tiles are the next step.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "band_attention_common.cuh"
+
+namespace {
+
+using namespace band_attn;
+
+struct BwdArgs {
+  const void* q; long long q_bs, q_hs, q_rs;        // element strides; dO, dQ too
+  const void* k; const void* v; long long kv_bs, kv_hs, kv_rs;  // dK, dV too
+  const float* bias; long long bias_bs, bias_hs;    // [.., L1] additive
+  const void* k2; const void* v2; long long kv2_bs, kv2_hs, kv2_rs;  // dK2, dV2 too
+  const void* dout;
+  const float* lse; const float* delta;             // [B, H, Lq] contiguous
+  void* dq; void* dk; void* dv; void* dk2; void* dv2;
+  int H, Lq, L1, L2, q_offset, causal;
+  float sm_scale;
+};
+
+// s for one (row, key) pair from its raw product, in the forward's order:
+// scale, + bias, + band
+__device__ __forceinline__ float logit(float qk, float sm_scale,
+                                       const float* bias, int l1, int causal,
+                                       int key, int qpos) {
+  float x = qk * sm_scale;
+  if (key < l1) x = x + bias[key];
+  if (causal && key > qpos) x = x + NEG_INF;
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// dq pass
+// ---------------------------------------------------------------------------
+
+template <int DH>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (size_t)(2 * BQ * (DH + 1) + BK * (DH + 1) + BQ * (BK + 1));
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int RS = DH + 1;        // padded smem row stride (no bank conflicts)
+  constexpr int PS = BK + 1;
+  constexpr int DJ = DH / 16;       // output columns per thread
+  extern __shared__ float smem[];
+  float* sq = smem;                 // [BQ][RS]
+  float* sdo = sq + BQ * RS;        // [BQ][RS]
+  float* skv = sdo + BQ * RS;       // [BK][RS]  V tile, then K tile
+  float* sds = skv + BK * RS;       // [BQ][PS]  dS
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;          // rows tr*4 .. tr*4+3 of the tile
+  const int tc = tid & 15;          // keys tc + 16 j; columns tc + 16 j
+  const int row0 = tile * BQ;
+  const int total = a.L1 + a.L2;
+
+  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.q_bs + h * a.q_hs;
+  const T* k1 = static_cast<const T*>(a.k) + b * a.kv_bs + h * a.kv_hs;
+  const T* v1 = static_cast<const T*>(a.v) + b * a.kv_bs + h * a.kv_hs;
+  const T* k2 = static_cast<const T*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
+  const T* v2 = static_cast<const T*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
+  const long long stat = ((long long)b * a.H + h) * a.Lq;
+
+  for (int i = tid; i < BQ * DH; i += NT) {
+    const int r = i / DH, d = i % DH, row = row0 + r;
+    const bool in = row < a.Lq;
+    sq[r * RS + d] = in ? to_f(q[row * a.q_rs + d]) : 0.f;
+    sdo[r * RS + d] = in ? to_f(dout[row * a.q_rs + d]) : 0.f;
+  }
+  float lse[4], delta[4], acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + tr * 4 + i;
+    lse[i] = row < a.Lq ? a.lse[stat + row] : 0.f;
+    delta[i] = row < a.Lq ? a.delta[stat + row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  int kv_end = total;
+  if (a.causal) {
+    const int last_row = min(row0 + BQ, a.Lq) - 1;
+    kv_end = max(0, min(total, a.q_offset + last_row + 1));
+  }
+
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous tile's dQ product is done with skv, sds
+    for (int i = tid; i < BK * DH; i += NT) {
+      const int kk = i / DH, d = i % DH, j = k0 + kk;
+      float x = 0.f;
+      if (j < a.L1) x = to_f(v1[j * a.kv_rs + d]);
+      else if (j < total) x = to_f(v2[(j - a.L1) * a.kv2_rs + d]);
+      skv[kk * RS + d] = x;
+    }
+    __syncthreads();
+
+    float dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      float da[4], vb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[i] = sdo[(tr * 4 + i) * RS + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vb[j] = skv[(tc + 16 * j) * RS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
+    }
+    __syncthreads();  // done with the V tile
+
+    for (int i = tid; i < BK * DH; i += NT) {
+      const int kk = i / DH, d = i % DH, j = k0 + kk;
+      float x = 0.f;
+      if (j < a.L1) x = to_f(k1[j * a.kv_rs + d]);
+      else if (j < total) x = to_f(k2[(j - a.L1) * a.kv2_rs + d]);
+      skv[kk * RS + d] = x;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DH; ++d) {
+      float qa[4], kb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[i] = sq[(tr * 4 + i) * RS + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kb[j] = skv[(tc + 16 * j) * RS + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + tr * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tc + 16 * j;
+        float ds = 0.f;
+        if (key < total && row < a.Lq) {
+          const float p = expf(logit(s[i][j], a.sm_scale, bias, a.L1, a.causal, key,
+                                    a.q_offset + row) - lse[i]);
+          ds = round_to<T>(p * (dp[i][j] - delta[i]) * a.sm_scale);
+        }
+        sds[(tr * 4 + i) * PS + tc + 16 * j] = ds;
+      }
+    }
+    __syncthreads();  // dS is complete
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float dsv[4], kv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = sds[(tr * 4 + i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kv[j] = skv[kk * RS + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+    }
+  }
+
+  T* dq = static_cast<T*>(a.dq) + b * a.q_bs + h * a.q_hs;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + tr * 4 + i;
+    if (row >= a.Lq) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq[row * a.q_rs + tc + 16 * j] = from_f<T>(acc[i][j]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dkv pass
+// ---------------------------------------------------------------------------
+
+template <int DH>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) *
+         (size_t)(2 * BK * (DH + 1) + 2 * BQ * (DH + 1) + BK * (BQ + 1) + 2 * BQ);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) {
+  constexpr int RS = DH + 1;
+  constexpr int PS = BQ + 1;
+  constexpr int DJ = DH / 16;
+  extern __shared__ float smem[];
+  float* sk = smem;                 // [BK][RS]
+  float* sv = sk + BK * RS;         // [BK][RS]
+  float* sq = sv + BK * RS;         // [BQ][RS]
+  float* sdo = sq + BQ * RS;        // [BQ][RS]
+  float* sp = sdo + BQ * RS;        // [BK][PS]  P^T, then dS^T
+  float* slse = sp + BK * PS;       // [BQ]
+  float* sdelta = slse + BQ;        // [BQ]
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;          // keys tr*4 .. tr*4+3 of the tile
+  const int tc = tid & 15;          // query rows tc + 16 j; columns tc + 16 j
+  const int key0 = tile * BK;
+  const int total = a.L1 + a.L2;
+
+  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const T* dout = static_cast<const T*>(a.dout) + b * a.q_bs + h * a.q_hs;
+  const T* k1 = static_cast<const T*>(a.k) + b * a.kv_bs + h * a.kv_hs;
+  const T* v1 = static_cast<const T*>(a.v) + b * a.kv_bs + h * a.kv_hs;
+  const T* k2 = static_cast<const T*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
+  const T* v2 = static_cast<const T*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
+  const long long stat = ((long long)b * a.H + h) * a.Lq;
+
+  for (int i = tid; i < BK * DH; i += NT) {
+    const int kk = i / DH, d = i % DH, j = key0 + kk;
+    float xk = 0.f, xv = 0.f;
+    if (j < a.L1) {
+      xk = to_f(k1[j * a.kv_rs + d]);
+      xv = to_f(v1[j * a.kv_rs + d]);
+    } else if (j < total) {
+      xk = to_f(k2[(j - a.L1) * a.kv2_rs + d]);
+      xv = to_f(v2[(j - a.L1) * a.kv2_rs + d]);
+    }
+    sk[kk * RS + d] = xk;
+    sv[kk * RS + d] = xv;
+  }
+  float dk_acc[4][DJ], dv_acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  // under the band, row r sees key j once q_offset + r >= j: the query tiles
+  // before the one holding row key0 - q_offset see none of this tile's keys
+  int q_first = 0;
+  if (a.causal) q_first = (max(0, key0 - a.q_offset) / BQ) * BQ;
+
+  for (int q0 = q_first; q0 < a.Lq; q0 += BQ) {
+    __syncthreads();  // the previous tile's dK product is done with sq, sp
+    for (int i = tid; i < BQ * DH; i += NT) {
+      const int r = i / DH, d = i % DH, row = q0 + r;
+      const bool in = row < a.Lq;
+      sq[r * RS + d] = in ? to_f(q[row * a.q_rs + d]) : 0.f;
+      sdo[r * RS + d] = in ? to_f(dout[row * a.q_rs + d]) : 0.f;
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const int row = q0 + r;
+      slse[r] = row < a.Lq ? a.lse[stat + row] : 0.f;
+      sdelta[r] = row < a.Lq ? a.delta[stat + row] : 0.f;
+    }
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; ++d) {
+      float ka[4], va[4], qb[4], db[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ka[i] = sk[(tr * 4 + i) * RS + d];
+        va[i] = sv[(tr * 4 + i) * RS + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        qb[j] = sq[(tc + 16 * j) * RS + d];
+        db[j] = sdo[(tc + 16 * j) * RS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(ka[i], qb[j], s[i][j]);
+          dp[i][j] = fmaf(va[i], db[j], dp[i][j]);
+        }
+    }
+
+    float ds[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = key0 + tr * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tc + 16 * j, row = q0 + r;
+        float p = 0.f;
+        ds[i][j] = 0.f;
+        if (key < total && row < a.Lq) {
+          p = expf(logit(s[i][j], a.sm_scale, bias, a.L1, a.causal, key,
+                         a.q_offset + row) - slse[r]);
+          ds[i][j] = round_to<T>(p * (dp[i][j] - sdelta[r]) * a.sm_scale);
+        }
+        sp[(tr * 4 + i) * PS + r] = round_to<T>(p);  // p cast to dO's dtype
+      }
+    }
+    __syncthreads();  // P^T is complete
+
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float pv[4], dv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = sp[(tr * 4 + i) * PS + r];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) dv[j] = sdo[r * RS + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) dv_acc[i][j] = fmaf(pv[i], dv[j], dv_acc[i][j]);
+    }
+    __syncthreads();  // done reading P^T
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sp[(tr * 4 + i) * PS + tc + 16 * j] = ds[i][j];
+    __syncthreads();  // dS^T is complete
+
+#pragma unroll 4
+    for (int r = 0; r < BQ; ++r) {
+      float dsv[4], qv[DJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dsv[i] = sp[(tr * 4 + i) * PS + r];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) qv[j] = sq[r * RS + tc + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + tr * 4 + i;
+    if (key >= total) continue;
+    T* dk;
+    T* dv;
+    if (key < a.L1) {
+      const long long off = b * a.kv_bs + h * a.kv_hs + key * a.kv_rs;
+      dk = static_cast<T*>(a.dk) + off;
+      dv = static_cast<T*>(a.dv) + off;
+    } else {
+      const long long off = b * a.kv2_bs + h * a.kv2_hs + (key - a.L1) * a.kv2_rs;
+      dk = static_cast<T*>(a.dk2) + off;
+      dv = static_cast<T*>(a.dv2) + off;
+    }
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[tc + 16 * j] = from_f<T>(dk_acc[i][j]);
+      dv[tc + 16 * j] = from_f<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+enum Pass { DQ = 1, DKV = 2 };
+
+template <typename T, int DH>
+cudaError_t launch_t(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
+  cudaError_t e;
+  if (passes & DQ) {
+    constexpr size_t smem = dq_smem_bytes<DH>();
+    // above 48 KB of dynamic shared memory needs the opt-in, per device
+    e = cudaFuncSetAttribute(band_attn_bwd_dq_kernel<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((a.Lq + BQ - 1) / BQ, a.H, B);
+    band_attn_bwd_dq_kernel<T, DH><<<grid, NT, smem, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (passes & DKV) {
+    constexpr size_t smem = dkv_smem_bytes<DH>();
+    e = cudaFuncSetAttribute(band_attn_bwd_dkv_kernel<T, DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((a.L1 + a.L2 + BK - 1) / BK, a.H, B);
+    band_attn_bwd_dkv_kernel<T, DH><<<grid, NT, smem, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_dh(const BwdArgs& a, int B, int dh, int passes, cudaStream_t stream) {
+#define BAND_ATTN_CASE(D) case D: return launch_t<T, D>(a, B, passes, stream);
+  switch (dh) {
+    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BAND_ATTN_CASE
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the first launch error, if any.
+int launch(const BwdArgs& a, int B, int dh, int dtype, int passes, void* stream) {
+  if (B <= 0 || a.Lq <= 0 || a.H <= 0 || a.H > 65535 || B > 65535 ||
+      a.L1 + a.L2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);
+  if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, passes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// [BH, L, Dh] layout: one head per leading row, bias [BH, Lkv], lse and
+// delta [BH, Lq]
+BwdArgs bh_args(const void* q, const void* k, const void* v, const float* bias,
+                const void* dout, const float* lse, const float* delta,
+                void* dq, void* dk, void* dv, int lq, int lkv, int dh,
+                int q_offset, int causal, float sm_scale) {
+  BwdArgs a{};
+  a.q = q; a.q_bs = (long long)lq * dh; a.q_hs = 0; a.q_rs = dh;
+  a.k = k; a.v = v; a.kv_bs = (long long)lkv * dh; a.kv_hs = 0; a.kv_rs = dh;
+  a.bias = bias; a.bias_bs = lkv; a.bias_hs = 0;
+  a.k2 = k; a.v2 = v; a.kv2_bs = 0; a.kv2_hs = 0; a.kv2_rs = 0;
+  a.dout = dout; a.lse = lse; a.delta = delta;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.dk2 = dk; a.dv2 = dv;
+  a.H = 1; a.Lq = lq; a.L1 = lkv; a.L2 = 0;
+  a.q_offset = q_offset; a.causal = causal; a.sm_scale = sm_scale;
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// B2dq: dQ of the blocked band attention over [BH, L, Dh]
+int band_attn_blocked_bwd_dq(const void* q, const void* k, const void* v,
+                             const float* bias, const void* dout,
+                             const float* lse, const float* delta, void* dq,
+                             int bh, int lq, int lkv, int dh, int q_offset,
+                             int causal, float sm_scale, int dtype, void* stream) {
+  BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, nullptr, nullptr,
+                      lq, lkv, dh, q_offset, causal, sm_scale);
+  return launch(a, bh, dh, dtype, DQ, stream);
+}
+
+// B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]
+int band_attn_blocked_bwd_dkv(const void* q, const void* k, const void* v,
+                              const float* bias, const void* dout,
+                              const float* lse, const float* delta, void* dk,
+                              void* dv, int bh, int lq, int lkv, int dh,
+                              int q_offset, int causal, float sm_scale,
+                              int dtype, void* stream) {
+  BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, nullptr, dk, dv,
+                      lq, lkv, dh, q_offset, causal, sm_scale);
+  return launch(a, bh, dh, dtype, DKV, stream);
+}
+
+// B4b: dQ, dK and dV of the whole-tile band attention over [BH, L, Dh]
+int band_attn_bh_bwd(const void* q, const void* k, const void* v,
+                     const float* bias, const void* dout, const float* lse,
+                     const float* delta, void* dq, void* dk, void* dv, int bh,
+                     int lq, int lkv, int dh, int q_offset, int causal,
+                     float sm_scale, int dtype, void* stream) {
+  BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, dk, dv,
+                      lq, lkv, dh, q_offset, causal, sm_scale);
+  return launch(a, bh, dh, dtype, DQ | DKV, stream);
+}
+
+// B1b: model layout [B, L, H*Dh] with the keys in two segments, S [B, Ls,
+// H*Dh] with its bias [B, Ls] at positions 0..Ls-1 and NS [B, n, H*Dh], all
+// valid, at positions Ls..Ls+n-1; lse and delta [B, H, Lq]. dK/dV of each
+// segment go to their own tensors.
+int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
+                        const void* kns, const void* vns, const float* bias,
+                        const void* dout, const float* lse, const float* delta,
+                        void* dq, void* dk, void* dv, void* dkns, void* dvns,
+                        int b, int h, int lq, int ls, int n, int dh,
+                        int q_offset, int causal, float sm_scale, int dtype,
+                        void* stream) {
+  const long long hd = (long long)h * dh;
+  BwdArgs a{};
+  a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
+  a.k = k; a.v = v; a.kv_bs = ls * hd; a.kv_hs = dh; a.kv_rs = hd;
+  a.bias = bias; a.bias_bs = ls; a.bias_hs = 0;
+  a.k2 = kns; a.v2 = vns; a.kv2_bs = n * hd; a.kv2_hs = dh; a.kv2_rs = hd;
+  a.dout = dout; a.lse = lse; a.delta = delta;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.dk2 = dkns; a.dv2 = dvns;
+  a.H = h; a.Lq = lq; a.L1 = ls; a.L2 = n;
+  a.q_offset = q_offset; a.causal = causal; a.sm_scale = sm_scale;
+  return launch(a, b, dh, dtype, DQ | DKV, stream);
+}
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-"""Unified ranking transformer (OneTrans capability), serving forward.
+"""Unified ranking transformer (OneTrans capability): training and serving
+forwards.
 
 tokenize [S; NS] -> N pre-norm blocks with mixed parameterization (shared
 Q/K/V/FFN weights for S tokens, per-token dedicated stacks for the n_ns NS
@@ -11,8 +12,13 @@ per-layer S keys/values, and ``score_with_cache`` scores any number of
 candidates through the NS-only path over that cache. It equals the full
 forward.
 
-This module is the serving forward: it has no dropout and no backward
-kernels (training is a later slice of the port).
+Training runs ``forward`` with ``deterministic=False`` (dropout after the
+attention and the FFN of every block, as flax's ``nn.Dropout``: keep with
+probability 1 - rate, scale the kept values by 1 / (1 - rate)) and with
+``dummies`` for the sparse embedding update. The dropout bits come from an
+explicit ``torch.Generator``: it draws one seed per block, and each block
+seeds its own generator from it, so a block recomputed under
+``use_remat`` (``torch.utils.checkpoint``) draws the same mask again.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from recommend_tpu_torch.config import RankingConfig
 from recommend_tpu_torch.models.tokenizer import UnifiedTokenizer, compute_dtype, dense
@@ -42,6 +49,17 @@ CacheEntry = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: the identity without a generator, else keep each
+    value with probability 1 - rate and scale it by 1 / (1 - rate)."""
+    if gen is None:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _einsum_f32(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -172,9 +190,18 @@ class MixedBlock(nn.Module):
         s_len: int,
         keep_len: int,
         key_valid: torch.Tensor,  # [B, L]
+        deterministic: bool = True,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
-        """Tail-``keep_len`` queries over the full K/V -> [B, keep_len, d]."""
+        """Tail-``keep_len`` queries over the full K/V -> [B, keep_len, d].
+        With ``deterministic=False`` and a dropout rate, ``dropout_seed``
+        seeds the block's dropout masks."""
         n = self.config.num_ns_tokens
+        rate = self.config.dropout_rate
+        gen = None
+        if not deterministic and rate > 0.0:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(dropout_seed)
         b, l, d = x.shape
         assert s_len + n == l and n <= keep_len <= l
         hx = self.attn_norm(x)
@@ -193,11 +220,11 @@ class MixedBlock(nn.Module):
         attn = self._attend_mixed(
             q, k_s, v_s, key_valid[:, :s_len], k_ns, v_ns, l - keep_len
         )
-        x = x[:, l - keep_len:] + self._o_proj(attn)
+        x = x[:, l - keep_len:] + _dropout(self._o_proj(attn), rate, gen)
         hx = self.ffn_norm(x)
         f_ns = self._ffn_ns(hx[:, keep_s:])
         f = torch.cat([self._ffn_s(hx[:, :keep_s]), f_ns], dim=1) if keep_s > 0 else f_ns
-        return x + f
+        return x + _dropout(f, rate, gen)
 
     def s_call(
         self,
@@ -276,14 +303,28 @@ class RankingModel(nn.Module):
         non_seq: Dict[str, torch.Tensor],
         sequences: Dict[str, torch.Tensor],
         seq_valid: Dict[str, torch.Tensor],
+        deterministic: bool = True,
+        dummies: Optional[Dict[str, torch.Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Full forward -> per-task logits [B]."""
+        """Full forward -> per-task logits [B]. ``dummies`` routes the
+        embedding gradients to per-lookup tensors (sparse updates). With
+        ``deterministic=False`` the CPU ``generator`` (the default one when
+        None) draws each block's dropout seed."""
         cfg = self.config
-        x, valid = self.tokenizer(non_seq, sequences, seq_valid)
+        x, valid = self.tokenizer(non_seq, sequences, seq_valid, dummies)
         total = x.shape[1]
         s_len = total - cfg.num_ns_tokens
-        for blk, keep in zip(self.blocks, pyramid_keep_lengths(cfg, total)):
-            x = blk.full_call(x, s_len, keep, valid)
+        seeds = [None] * cfg.num_layers
+        if not deterministic and cfg.dropout_rate > 0.0:
+            seeds = torch.randint(0, 2**62, (cfg.num_layers,), generator=generator).tolist()
+        remat = cfg.use_remat and torch.is_grad_enabled()
+        for blk, keep, seed in zip(self.blocks, pyramid_keep_lengths(cfg, total), seeds):
+            if remat:
+                x = checkpoint(blk.full_call, x, s_len, keep, valid, deterministic,
+                               seed, use_reentrant=False)
+            else:
+                x = blk.full_call(x, s_len, keep, valid, deterministic, seed)
             valid = valid[:, -keep:]
             s_len = keep - cfg.num_ns_tokens
         x = self.final_norm(x)

@@ -7,6 +7,11 @@ non-sequence features (oneTrans model.py:203-277; paper Eq. 7).
   learnable [SEP] token *between* sequences (not after the last one).
 - Layout [S ; NS]: under the causal band mask every S token is independent of
   the NS tokens, which is what makes the S-side K/V cacheable.
+
+Training passes ``dummies`` (``ns_<feature>`` and ``seq_<sequence>`` zeros
+that require grad, one row per lookup): each lookup then reads its table
+outside autograd and adds its dummy, so the backward pass yields per-lookup
+row gradients for the sparse update (``ops/sparse_embed.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.ops.sparse_embed import lookup_with_dummy
+
+Dummies = Optional[Dict[str, torch.Tensor]]
 
 
 def compute_dtype(cfg: RankingConfig) -> torch.dtype:
@@ -51,19 +59,23 @@ class UnifiedTokenizer(nn.Module):
             self.seq_proj = nn.Linear(cfg.seq_item_feature_dim, d)
             self.sep_token = nn.Parameter(torch.empty(d))
 
-    def _lookup(self, emb: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, emb.weight).to(compute_dtype(self.config))
+    def _lookup(self, emb: nn.Embedding, ids: torch.Tensor,
+                dummy: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return lookup_with_dummy(emb.weight, ids, dummy).to(compute_dtype(self.config))
 
     def ns_concat(
         self,
         non_seq: Dict[str, torch.Tensor],
         features: Optional[Tuple[str, ...]] = None,
+        dummies: Dummies = None,
     ) -> torch.Tensor:
         """Concatenated per-feature embeddings [B, F·fe (+ semantic dims)];
         ``features`` restricts to a subset."""
         cfg = self.config
         feats = cfg.non_seq_features if features is None else features
-        parts = [self._lookup(self.embeds[f], non_seq[f]) for f in feats]
+        dummies = dummies or {}
+        parts = [self._lookup(self.embeds[f], non_seq[f], dummies.get(f"ns_{f}"))
+                 for f in feats]
         if features is None:
             for name, dim in cfg.semantic_features:
                 feat = non_seq[name].to(parts[0].dtype)
@@ -71,27 +83,32 @@ class UnifiedTokenizer(nn.Module):
                 parts.append(feat)
         return torch.cat(parts, dim=-1)
 
-    def ns_tokens(self, non_seq: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def ns_tokens(self, non_seq: Dict[str, torch.Tensor],
+                  dummies: Dummies = None) -> torch.Tensor:
         """[B] int features -> [B, n_ns, d] NS tokens."""
         cfg = self.config
-        x = dense(self.ns_proj, self.ns_concat(non_seq), compute_dtype(cfg))
+        x = dense(self.ns_proj, self.ns_concat(non_seq, dummies=dummies),
+                  compute_dtype(cfg))
         return x.reshape(x.shape[0], cfg.num_ns_tokens, cfg.embed_dim)
 
     def s_tokens(
         self,
         sequences: Dict[str, torch.Tensor],
         seq_valid: Dict[str, torch.Tensor],
+        dummies: Dummies = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-sequence item ids [B, L_i] -> ([B, Ls, d], [B, Ls] validity),
         sequences joined with [SEP] between them."""
         cfg = self.config
         cdt = compute_dtype(cfg)
+        dummies = dummies or {}
         toks, valids = [], []
         names = [f for f in cfg.sequence_features if f in sequences]
         for i, sf in enumerate(names):
             ids = sequences[sf]
             b = ids.shape[0]
-            t = dense(self.seq_proj, self._lookup(self.item_embed, ids), cdt)
+            e = self._lookup(self.item_embed, ids, dummies.get(f"seq_{sf}"))
+            t = dense(self.seq_proj, e, cdt)
             toks.append(t)
             valids.append(seq_valid[sf])
             if i < len(names) - 1:
@@ -104,16 +121,17 @@ class UnifiedTokenizer(nn.Module):
         non_seq: Dict[str, torch.Tensor],
         sequences: Dict[str, torch.Tensor],
         seq_valid: Dict[str, torch.Tensor],
+        dummies: Dummies = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full token stream [S; NS] -> ([B, L, d], [B, L] validity)."""
-        ns = self.ns_tokens(non_seq)
+        ns = self.ns_tokens(non_seq, dummies)
         b, dev = ns.shape[0], ns.device
         if not any(f in sequences for f in self.config.sequence_features):
             # NS-only stream: S length 0
             s = ns.new_zeros((b, 0, ns.shape[-1]))
             s_valid = torch.zeros((b, 0), dtype=torch.bool, device=dev)
         else:
-            s, s_valid = self.s_tokens(sequences, seq_valid)
+            s, s_valid = self.s_tokens(sequences, seq_valid, dummies)
         tokens = torch.cat([s, ns], dim=1)
         valid = torch.cat(
             [s_valid, torch.ones((b, ns.shape[1]), dtype=torch.bool, device=dev)],

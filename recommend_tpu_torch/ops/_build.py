@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``build/kernels/`` at the repository
 root, and loaded with ``ctypes``. The library's file name carries a hash of
-its source and flags, so an edited source is rebuilt and a stale library is
-never loaded. A failed build raises with the compiler's output.
+its source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and a stale library is never loaded. A failed build raises
+with the compiler's output. ``build_all`` compiles every source at once, one
+``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -40,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
-    src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -65,6 +70,14 @@ def build(stem: str) -> Path:
             f"{proc.stdout}")
     os.replace(tmp, path)
     return path
+
+
+def build_all() -> List[Path]:
+    """Build every ``csrc/*.cu`` concurrently (one ``nvcc`` per source) and
+    return their library paths."""
+    stems = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=len(stems)) as pool:
+        return list(pool.map(build, stems))
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -1,20 +1,29 @@
-"""Band-masked attention forward kernels and their dispatchers.
+"""Band-masked attention kernels, their autograd Functions and dispatchers.
 
-The counterpart of the JAX package's ``ops/pallas/flash_attention.py``. Each
-of its four forward Pallas kernels has here
+The counterpart of the JAX package's ``ops/pallas/flash_attention.py``.
+Each of its forward Pallas kernels, and each backward one a training step
+reaches, has here
 
-- a wrapper named after its CUDA entry point in ``csrc/band_attention.cu``
-  (``band_attn_blocked_fwd``, ``band_attn_bh_fwd``, ``band_attn_mh_fwd``,
-  ``band_attn_segkv_fwd``), returning ``(out, lse)``;
-- a plain PyTorch version of the same function (``*_plain``);
-- a launch count in ``LAUNCHES``, raised by one at each kernel launch;
-- the JAX package's public name (``flash_band_attention`` ...), returning
-  ``out``.
+- a wrapper named after its CUDA entry point (forward in
+  ``csrc/band_attention.cu``: ``band_attn_blocked_fwd``, ``band_attn_bh_fwd``,
+  ``band_attn_mh_fwd``, ``band_attn_segkv_fwd``, returning ``(out, lse)``;
+  backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
+  ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``,
+  ``band_attn_segkv_bwd``, returning the input gradients);
+- a plain PyTorch version of the same function (``*_plain``), with the same
+  rounding points;
+- a launch count in ``LAUNCHES``, raised by one at each entry-point call.
 
-A wrapper given CPU tensors computes the plain version; given CUDA tensors it
-launches the kernel or raises. The kernels are forward only: the backward
-kernels belong to the training slice, and a CUDA call that would need a
-gradient raises.
+The JAX package's public names (``flash_band_attention`` ...) return ``out``
+and carry a gradient through a ``torch.autograd.Function``: its forward
+runs the forward wrapper and saves q, k, v, bias, out and lse; its backward
+forms delta = rowsum(out * dO) in float32 and runs the backward wrapper(s).
+``fused_mh_band_attention`` (B3) has no backward kernel yet: on CUDA it
+raises when a gradient is needed.
+
+A wrapper given CPU tensors computes the plain version; given CUDA tensors
+it launches the kernel or raises. A forward wrapper returns no gradient on
+CUDA, so there it raises when called directly with inputs that need one.
 
 The dispatchers ``flash_attention_bhld`` and ``flash_attention_bhld_segkv``
 carry the JAX package's predicates verbatim (``lkv <= FUSED_MAX_KV``,
@@ -40,18 +49,31 @@ LAUNCHES = {
     "band_attn_bh_fwd": 0,
     "band_attn_mh_fwd": 0,
     "band_attn_segkv_fwd": 0,
+    "band_attn_blocked_bwd_dq": 0,
+    "band_attn_blocked_bwd_dkv": 0,
+    "band_attn_bh_bwd": 0,
+    "band_attn_segkv_bwd": 0,
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_BH_SIG = [_P] * 6 + [_I] * 6 + [_F, _I, _P]
+_TAIL = [_F, _I, _P]  # sm_scale, dtype code, stream
 _SIGNATURES = {
-    "band_attn_blocked_fwd": _BH_SIG,
-    "band_attn_bh_fwd": _BH_SIG,
-    "band_attn_mh_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    "band_attn_segkv_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    "band_attn_blocked_fwd": [_P] * 6 + [_I] * 6 + _TAIL,
+    "band_attn_bh_fwd": [_P] * 6 + [_I] * 6 + _TAIL,
+    "band_attn_mh_fwd": [_P] * 6 + [_I] * 7 + _TAIL,
+    "band_attn_segkv_fwd": [_P] * 8 + [_I] * 8 + _TAIL,
+    "band_attn_blocked_bwd_dq": [_P] * 8 + [_I] * 6 + _TAIL,
+    "band_attn_blocked_bwd_dkv": [_P] * 9 + [_I] * 6 + _TAIL,
+    "band_attn_bh_bwd": [_P] * 10 + [_I] * 6 + _TAIL,
+    "band_attn_segkv_bwd": [_P] * 14 + [_I] * 8 + _TAIL,
 }
+# the csrc/<stem>.cu that holds each entry point
+LIBRARY = {name: "band_attention_bwd" if "_bwd" in name else "band_attention"
+           for name in LAUNCHES}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_DH = (16, 32, 64, 128)
+# head widths the kernels are instantiated for: every multiple of 16 up to
+# 128 (BAND_ATTN_FOR_EACH_DH in csrc/band_attention_common.cuh)
+_KERNEL_DH = tuple(range(16, 129, 16))
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +86,19 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+def _logits(q, k, bias, sm_scale, q_offset, causal):
+    """[G, H, Lq, Lkv] float32 logits in the kernels' order: the product
+    (bf16 products are exact in float32), x sm_scale, + bias, + the band."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    s = s + bias[:, :, None, :]
+    if causal:
+        lq, lkv = q.shape[2], k.shape[2]
+        q_pos = q_offset + torch.arange(lq, device=q.device)
+        kv_pos = torch.arange(lkv, device=q.device)
+        s = s + torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
+    return s
+
+
 def _band_attention_plain(
     q: torch.Tensor,  # [G, H, Lq, Dh]
     k: torch.Tensor,  # [G, H, Lkv, Dh]
@@ -73,16 +108,9 @@ def _band_attention_plain(
     q_offset: int,
     causal: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What every kernel computes, written out: logits in float32 (bf16
-    products are exact in float32), then + bias, then + the band, softmax
-    with ``l`` clamped at 1e-30, p cast to the value dtype before PV."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
-    s = s + bias[:, :, None, :]
-    if causal:
-        lq, lkv = q.shape[2], k.shape[2]
-        q_pos = q_offset + torch.arange(lq, device=q.device)
-        kv_pos = torch.arange(lkv, device=q.device)
-        s = s + torch.where(kv_pos[None, :] <= q_pos[:, None], 0.0, NEG_INF)
+    """What every forward kernel computes, written out: softmax with ``l``
+    clamped at 1e-30, p cast to the value dtype before PV."""
+    s = _logits(q, k, bias, sm_scale, q_offset, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -90,6 +118,22 @@ def _band_attention_plain(
     out = (acc / l).to(q.dtype)
     lse = (m + torch.log(l))[..., 0]
     return out, lse
+
+
+def _band_attention_bwd_plain(q, k, v, bias, do, lse, delta, sm_scale, q_offset,
+                              causal):
+    """What every backward kernel computes, in [G, H, L, Dh] layout (lse and
+    delta [G, H, Lq]): p recomputed from lse, p cast to dO's dtype before
+    the dV product, dS = p (dp - delta) sm_scale cast to k's dtype before the
+    dQ and dK products, float32 accumulation, outputs in the input dtype."""
+    s = _logits(q, k, bias, sm_scale, q_offset, causal)
+    p = torch.exp(s - lse[..., None])
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * sm_scale).to(k.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def band_attn_blocked_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal):
@@ -104,9 +148,36 @@ def band_attn_bh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal):
     return band_attn_blocked_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
 
 
+def band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta, sm_scale, q_offset,
+                           causal):
+    """[BH, L, Dh] layout -> (dq, dk, dv)."""
+    grads = _band_attention_bwd_plain(
+        q[:, None], k[:, None], v[:, None], kv_bias[:, None], do[:, None],
+        lse[:, None], delta[:, None], sm_scale, q_offset, causal,
+    )
+    return tuple(g[:, 0] for g in grads)
+
+
+def band_attn_blocked_bwd_dq_plain(q, k, v, kv_bias, do, lse, delta, sm_scale,
+                                   q_offset, causal):
+    return band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta, sm_scale,
+                                  q_offset, causal)[0]
+
+
+def band_attn_blocked_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta, sm_scale,
+                                    q_offset, causal):
+    return band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta, sm_scale,
+                                  q_offset, causal)[1:]
+
+
 def _heads_first(x: torch.Tensor, h: int) -> torch.Tensor:
     b, l, hd = x.shape
     return x.reshape(b, l, h, hd // h).transpose(1, 2)
+
+
+def _heads_last(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, dh = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * dh)
 
 
 def band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal, h):
@@ -114,18 +185,35 @@ def band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal, h):
         _heads_first(q, h), _heads_first(k, h), _heads_first(v, h),
         kv_bias[:, None], sm_scale, q_offset, causal,
     )
-    return out.transpose(1, 2).reshape(q.shape), lse
+    return _heads_last(out), lse
+
+
+def _joined(s_bias, k, v, kns, vns):
+    """The [S ; NS] keys, values and bias of the segmented kernels: the NS
+    keys sit at positions Ls..Ls+n-1 and are all valid (bias 0, an exact
+    addition)."""
+    bias = torch.cat([s_bias, s_bias.new_zeros(s_bias.shape[0], kns.shape[1])], 1)
+    return torch.cat([k, kns], 1), torch.cat([v, vns], 1), bias
 
 
 def band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
                               causal, h):
-    """One softmax over the joined [S ; NS] keys: the NS keys sit at
-    positions Ls..Ls+n-1 and are all valid (bias 0, an exact addition)."""
-    bias = torch.cat([s_bias, s_bias.new_zeros(s_bias.shape[0], kns.shape[1])], 1)
-    return band_attn_mh_fwd_plain(
-        q, torch.cat([k, kns], 1), torch.cat([v, vns], 1), bias, sm_scale,
-        q_offset, causal, h,
-    )
+    """One softmax over the joined [S ; NS] keys."""
+    kj, vj, bias = _joined(s_bias, k, v, kns, vns)
+    return band_attn_mh_fwd_plain(q, kj, vj, bias, sm_scale, q_offset, causal, h)
+
+
+def band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse, delta,
+                              sm_scale, q_offset, causal, h):
+    """Model layout, lse and delta [B, H, Lq] -> (dq, dk, dv, dkns, dvns)."""
+    kj, vj, bias = _joined(s_bias, k, v, kns, vns)
+    dq, dkj, dvj = (_heads_last(g) for g in _band_attention_bwd_plain(
+        _heads_first(q, h), _heads_first(kj, h), _heads_first(vj, h),
+        bias[:, None], _heads_first(do, h), lse, delta, sm_scale, q_offset,
+        causal,
+    ))
+    ls = k.shape[1]
+    return dq, dkj[:, :ls], dvj[:, :ls], dkj[:, ls:], dvj[:, ls:]
 
 
 # ---------------------------------------------------------------------------
@@ -133,35 +221,42 @@ def band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, qkv, bias: torch.Tensor, dh: int) -> bool:
-    """Validate the inputs of one wrapper; True when they lie on the CPU
-    (plain version), False for CUDA (kernel launch)."""
-    q = qkv[0]
-    dev = q.device
+def _check(name: str, same, f32, dh: int) -> bool:
+    """Validate the inputs of one wrapper: ``same`` share float32 or
+    bfloat16, ``f32`` (bias, lse, delta) are float32, all on one device and
+    contiguous. True when they lie on the CPU (plain version), False for
+    CUDA (kernel launch)."""
+    dev = same[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    for t in (*qkv, bias):
+    for t in (*same, *f32):
         if t.device != dev:
             raise ValueError(f"{name}: inputs on {t.device} and {dev}")
-    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in qkv):
-        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, got "
-                        f"{[t.dtype for t in qkv]}")
-    if bias.dtype != torch.float32:
-        raise TypeError(f"{name}: bias must be float32, got {bias.dtype}")
-    if not all(t.is_contiguous() for t in (*qkv, bias)):
+    if same[0].dtype not in _DTYPE_CODE or any(t.dtype != same[0].dtype for t in same):
+        raise TypeError(f"{name}: q/k/v (and dO) must share float32 or bfloat16, "
+                        f"got {[t.dtype for t in same]}")
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError(f"{name}: bias/lse/delta must be float32, got "
+                        f"{[t.dtype for t in f32]}")
+    if not all(t.is_contiguous() for t in (*same, *f32)):
         raise ValueError(f"{name}: inputs must be contiguous")
     if dev.type == "cpu":
         return True
     if dh not in _KERNEL_DH:
         raise ValueError(f"{name}: head dim {dh} not in {_KERNEL_DH}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*qkv, bias)):
-        raise NotImplementedError(
-            f"{name}: forward only; the backward kernels are not ported")
     return False
 
 
+def _forward_only(name: str, public: str, tensors) -> None:
+    """A forward kernel writes into fresh tensors and records no graph: on
+    CUDA, inputs that need a gradient go through the public name."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} returns no gradient; call {public}, whose "
+                           f"autograd Function carries one")
+
+
 def _launch(name: str, tensors, ints, sm_scale: float, dtype: torch.dtype):
-    lib = _build.load("band_attention")
+    lib = _build.load(LIBRARY[name])
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
@@ -184,10 +279,18 @@ def _bh_shapes(name, q, k, v, kv_bias):
     return bh, lq, lkv, dh
 
 
-def _bh_fwd(name, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
+def _grad_shapes(name, q, do, lse, delta, stat_shape):
+    if do.shape != q.shape or lse.shape != stat_shape or delta.shape != stat_shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} dO {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)} delta {tuple(delta.shape)}, "
+                         f"statistics must be {stat_shape}")
+
+
+def _bh_fwd(name, public, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
     bh, lq, lkv, dh = _bh_shapes(name, q, k, v, kv_bias)
-    if _check(name, (q, k, v), kv_bias, dh):
+    if _check(name, (q, k, v), (kv_bias,), dh):
         return plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
+    _forward_only(name, public, (q, k, v, kv_bias))
     out = torch.empty_like(q)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
@@ -200,16 +303,71 @@ def band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
     """B2f, the blocked online-softmax kernel. q [BH, Lq, Dh], k/v
     [BH, Lkv, Dh], kv_bias [BH, Lkv] float32 -> out [BH, Lq, Dh], lse
     [BH, Lq] float32."""
-    return _bh_fwd("band_attn_blocked_fwd", band_attn_blocked_fwd_plain,
-                   q, k, v, kv_bias, sm_scale, q_offset, causal)
+    return _bh_fwd("band_attn_blocked_fwd", "flash_band_attention",
+                   band_attn_blocked_fwd_plain, q, k, v, kv_bias, sm_scale,
+                   q_offset, causal)
 
 
 def band_attn_bh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
                      causal: bool = True):
     """B4f, the whole-tile kernel in [BH, L, Dh] layout; shapes as
     ``band_attn_blocked_fwd``."""
-    return _bh_fwd("band_attn_bh_fwd", band_attn_bh_fwd_plain,
-                   q, k, v, kv_bias, sm_scale, q_offset, causal)
+    return _bh_fwd("band_attn_bh_fwd", "fused_band_attention",
+                   band_attn_bh_fwd_plain, q, k, v, kv_bias, sm_scale,
+                   q_offset, causal)
+
+
+def _bh_bwd(name, q, k, v, kv_bias, do, lse, delta):
+    """Validate a [BH, L, Dh] backward call -> (plain?, ints for the C call)."""
+    bh, lq, lkv, dh = _bh_shapes(name, q, k, v, kv_bias)
+    _grad_shapes(name, q, do, lse, delta, (bh, lq))
+    return _check(name, (q, k, v, do), (kv_bias, lse, delta), dh), (bh, lq, lkv, dh)
+
+
+def band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
+                             q_offset: int, causal: bool = True):
+    """B2dq: dq of the blocked kernel. Forward inputs as
+    ``band_attn_blocked_fwd``, do [BH, Lq, Dh] in q's dtype, lse and delta
+    [BH, Lq] float32 -> dq [BH, Lq, Dh]."""
+    name = "band_attn_blocked_bwd_dq"
+    plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
+    if plain:
+        return band_attn_blocked_bwd_dq_plain(q, k, v, kv_bias, do, lse, delta,
+                                              sm_scale, q_offset, causal)
+    dq = torch.empty_like(q)
+    _launch(name, (q, k, v, kv_bias, do, lse, delta, dq),
+            (*dims, q_offset, int(causal)), sm_scale, q.dtype)
+    return dq
+
+
+def band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
+                              q_offset: int, causal: bool = True):
+    """B2dkv: (dk, dv) of the blocked kernel; inputs as
+    ``band_attn_blocked_bwd_dq``."""
+    name = "band_attn_blocked_bwd_dkv"
+    plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
+    if plain:
+        return band_attn_blocked_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta,
+                                               sm_scale, q_offset, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(name, (q, k, v, kv_bias, do, lse, delta, dk, dv),
+            (*dims, q_offset, int(causal)), sm_scale, q.dtype)
+    return dk, dv
+
+
+def band_attn_bh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
+                     q_offset: int, causal: bool = True):
+    """B4b: (dq, dk, dv) of the whole-tile [BH, L, Dh] kernel; inputs as
+    ``band_attn_blocked_bwd_dq``. One call runs the dq and the dkv pass."""
+    name = "band_attn_bh_bwd"
+    plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
+    if plain:
+        return band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
+                                      sm_scale, q_offset, causal)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
+            (*dims, q_offset, int(causal)), sm_scale, q.dtype)
+    return dq, dk, dv
 
 
 def _mh_shapes(name, q, k, v, kv_bias, h):
@@ -229,14 +387,25 @@ def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
     out [B, Lq, H·Dh], lse [B, H, Lq] float32."""
     name = "band_attn_mh_fwd"
     b, lq, lkv, dh = _mh_shapes(name, q, k, v, kv_bias, h)
-    if _check(name, (q, k, v), kv_bias, dh):
+    if _check(name, (q, k, v), (kv_bias,), dh):
         return band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset,
                                       causal, h)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            f"{name}: its backward (B3b, _fmh_bwd_kernel) is not ported")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return out, lse
+
+
+def _seg_shapes(name, q, k, v, kns, vns, s_bias, h):
+    b, lq, ls, dh = _mh_shapes(name, q, k, v, s_bias, h)
+    n = kns.shape[1]
+    if kns.shape != (b, n, h * dh) or vns.shape != kns.shape:
+        raise ValueError(f"{name}: NS shapes {tuple(kns.shape)} {tuple(vns.shape)}")
+    return b, lq, ls, n, dh
 
 
 def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
@@ -246,13 +415,11 @@ def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
     [B, n, H·Dh], all valid, at positions Ls..Ls+n-1 -> out [B, Lq, H·Dh],
     lse [B, H, Lq] float32."""
     name = "band_attn_segkv_fwd"
-    b, lq, ls, dh = _mh_shapes(name, q, k, v, s_bias, h)
-    n = kns.shape[1]
-    if kns.shape != (b, n, h * dh) or vns.shape != kns.shape:
-        raise ValueError(f"{name}: NS shapes {tuple(kns.shape)} {tuple(vns.shape)}")
-    if _check(name, (q, k, v, kns, vns), s_bias, dh):
+    b, lq, ls, n, dh = _seg_shapes(name, q, k, v, kns, vns, s_bias, h)
+    if _check(name, (q, k, v, kns, vns), (s_bias,), dh):
         return band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale,
                                          q_offset, causal, h)
+    _forward_only(name, "fused_mhseg_band_attention", (q, k, v, kns, vns))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kns, vns, s_bias, out, lse),
@@ -260,17 +427,106 @@ def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
     return out, lse
 
 
+def band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse, delta,
+                        sm_scale: float, q_offset: int, causal: bool = True,
+                        h: int = 1):
+    """B1b: (dq, dk, dv, dkns, dvns) of the segmented-KV kernel. Forward
+    inputs as ``band_attn_segkv_fwd``, do [B, Lq, H·Dh] in q's dtype, lse
+    and delta [B, H, Lq] float32. The S and NS key gradients come back as
+    separate tensors; one call runs the dq and the dkv pass."""
+    name = "band_attn_segkv_bwd"
+    b, lq, ls, n, dh = _seg_shapes(name, q, k, v, kns, vns, s_bias, h)
+    _grad_shapes(name, q, do, lse, delta, (b, h, lq))
+    if _check(name, (q, k, v, kns, vns, do), (s_bias, lse, delta), dh):
+        return band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse,
+                                         delta, sm_scale, q_offset, causal, h)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v, kns, vns))
+    _launch(name, (q, k, v, kns, vns, s_bias, do, lse, delta, *grads),
+            (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)
+    return grads
+
+
 # ---------------------------------------------------------------------------
-# The JAX package's public names
+# Autograd Functions and the JAX package's public names
 # ---------------------------------------------------------------------------
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor, h: int = 0) -> torch.Tensor:
+    """rowsum(out * dO) in float32: [BH, Lq] for the [BH, L, Dh] layout, or
+    [B, H, Lq] for the model layout with ``h`` heads."""
+    prod = out.float() * do.float()
+    if not h:
+        return prod.sum(-1)
+    b, lq, hd = out.shape
+    return prod.reshape(b, lq, h, hd // h).sum(-1).transpose(1, 2).contiguous()
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """flash_band_attention: B2f forward, B2dq + B2dkv backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, sm_scale, q_offset, causal):
+        out, lse = band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)
+        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        ctx.args = (sm_scale, q_offset, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_bias, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = _delta(out, do)
+        dq = band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, *ctx.args)
+        dk, dv = band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta,
+                                           *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+class _WholeTileAttention(torch.autograd.Function):
+    """fused_band_attention: B4f forward, B4b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, sm_scale, q_offset, causal):
+        out, lse = band_attn_bh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)
+        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        ctx.args = (sm_scale, q_offset, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_bias, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = band_attn_bh_bwd(q, k, v, kv_bias, do, lse, _delta(out, do),
+                                      *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
+class _SegmentedAttention(torch.autograd.Function):
+    """fused_mhseg_band_attention: B1f forward, B1b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kns, vns, s_bias, sm_scale, q_offset, causal, h):
+        out, lse = band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale,
+                                       q_offset, causal, h)
+        ctx.save_for_backward(q, k, v, kns, vns, s_bias, out, lse)
+        ctx.args = (sm_scale, q_offset, causal, h)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kns, vns, s_bias, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        grads = band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse,
+                                    _delta(out, do, ctx.args[-1]), *ctx.args)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True):
-    return band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)[0]
+    return _BlockedAttention.apply(q, k, v, kv_bias, sm_scale, q_offset, causal)
 
 
 def fused_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True):
-    return band_attn_bh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal)[0]
+    return _WholeTileAttention.apply(q, k, v, kv_bias, sm_scale, q_offset, causal)
 
 
 def fused_mh_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True,
@@ -280,8 +536,8 @@ def fused_mh_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True,
 
 def fused_mhseg_band_attention(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
                                causal=True, h=1):
-    return band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
-                               causal, h)[0]
+    return _SegmentedAttention.apply(q, k, v, kns, vns, s_bias, sm_scale,
+                                     q_offset, causal, h)
 
 
 # ---------------------------------------------------------------------------

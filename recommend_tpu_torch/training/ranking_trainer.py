@@ -1,0 +1,319 @@
+"""Ranking trainer: the port of the JAX package's
+``training/ranking_trainer.RankingTrainer``.
+
+A multi-task BCE loop over ``RankingModel``: global-norm clip and the dense
+optimizer (``training/optimizer.py``), touched-row adagrad on the id tables
+when ``use_sparse_embedding_updates`` is on (``ops/sparse_embed.py``), dense
+adagrad or sgd on them otherwise; streaming AUC in ``evaluate``; best-params
+tracking and early stopping in ``train``.
+
+The state is a dict of named tensors (``TrainState.params``, the names of
+``RankingModel``'s state dict) that the step updates IN PLACE; the module
+itself holds no storage and runs through ``torch.func.functional_call``.
+With sparse updates the tables stay outside autograd: zeros "dummies", one
+row per lookup, receive the per-lookup gradients, and the optimizer state
+is ``(dense optimizer state, {table name: accumulator})`` with the
+accumulators at 0.1 (optax's adagrad default), one per row in ``rowwise``
+mode.
+
+The trainer runs on CUDA unless given ``device="cpu"``; with no device
+given and no CUDA available it raises. Checkpointing (``checkpoint_dir``)
+and the device mesh (``mesh``) are not ported yet and raise when asked for.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Iterator, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from recommend_tpu_torch._device import resolve_device
+from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.convert import init_params, table_param_names
+from recommend_tpu_torch.models.losses import multi_task_bce_loss
+from recommend_tpu_torch.models.ranking import RankingModel
+from recommend_tpu_torch.ops.sparse_embed import (
+    compact_valid_rows,
+    make_dummy,
+    sparse_rowwise_update_table,
+    sparse_update_table,
+)
+from recommend_tpu_torch.training.metrics import streaming_auc
+from recommend_tpu_torch.training.optimizer import (
+    make_ranking_optimizer,
+    sparse_lr_schedule,
+)
+from recommend_tpu_torch.utils.logging import MetricLogger
+
+Tensors = Dict[str, torch.Tensor]
+
+
+class TrainState(NamedTuple):
+    params: Tensors  # RankingModel state-dict names -> tensors
+    opt_state: Any  # optimizer state, or (optimizer state, accumulators)
+    step: int
+
+
+class RankingTrainer:
+    def __init__(
+        self,
+        cfg: RankingConfig,
+        checkpoint_dir: Optional[str] = None,
+        log_dir: Optional[str] = None,
+        mesh=None,
+        total_steps: int = 0,
+        device=None,
+    ):
+        """``total_steps`` feeds the cosine dense-LR schedule."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "RankingTrainer: checkpoints (ROADMAP A11) are not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "RankingTrainer: multi-device training (ROADMAP slice 5) is not "
+                "ported yet")
+        self.device = resolve_device(device, "RankingTrainer")
+        self.cfg = cfg
+        with torch.device("meta"):
+            self.model = RankingModel(cfg)
+        self.tables = table_param_names(cfg)
+        self.optimizer = make_ranking_optimizer(cfg, total_steps, self.tables)
+        self.logger = MetricLogger(log_dir)
+        self.history: Dict[str, list] = {"train": [], "val": []}
+        self._auc = streaming_auc(device=self.device)
+        self._sparse_lr = sparse_lr_schedule(cfg)
+        self._update = (sparse_rowwise_update_table
+                        if cfg.sparse_update_mode == "rowwise" else sparse_update_table)
+
+    # -- batches and state --------------------------------------------------
+    def _seq_names_of(self, batch) -> list:
+        """The sequence-feature row layout shared by the dummies, the sparse
+        update and the host-side compaction indices."""
+        return [sf for sf in self.cfg.sequence_features if sf in batch["sequences"]]
+
+    def _put_batch(self, batch: Dict) -> Dict:
+        """A numpy batch -> tensors on the trainer's device (ids int64,
+        validity bool, labels float32), with the sparse-scatter compaction
+        indices precomputed on the host when a budget is set."""
+        cfg = self.cfg
+        dev = self.device
+
+        def put(group, dtype):
+            return {k: torch.as_tensor(np.asarray(v)).to(dev, dtype)
+                    for k, v in batch[group].items()}
+
+        out = {"non_seq": put("non_seq", torch.long),
+               "sequences": put("sequences", torch.long),
+               "seq_valid": put("seq_valid", torch.bool),
+               "labels": put("labels", torch.float32)}
+        if (cfg.use_sparse_embedding_updates and cfg.sparse_scatter_budget > 0
+                and batch.get("sequences")):
+            valid = np.concatenate([np.asarray(batch["seq_valid"][sf]).reshape(-1)
+                                    for sf in self._seq_names_of(batch)])
+            src = np.flatnonzero(valid)
+            budget = cfg.sparse_scatter_budget
+            idx = np.full(budget, len(valid), np.int64)
+            idx[: min(len(src), budget)] = src[:budget]
+            out["sparse_scatter_src"] = torch.as_tensor(idx).to(dev)
+            out["sparse_overflow"] = torch.tensor(max(len(src) - budget, 0), device=dev)
+        return out
+
+    def init_state(self, params: Optional[Tensors] = None, seed: int = 0,
+                   accums: Optional[Tensors] = None) -> TrainState:
+        """A fresh state: ``params`` (a ``RankingModel`` state dict, e.g.
+        from ``convert.params_from_flax``) or ``init_params(cfg, seed)``,
+        copied to the device; a zero optimizer state; with sparse updates,
+        ``accums`` (by table parameter name) or 0.1 everywhere."""
+        cfg = self.cfg
+        if params is None:
+            params = init_params(cfg, seed=seed, device=self.device)
+        sparse = cfg.use_sparse_embedding_updates
+        state: Tensors = {}
+        for name, value in params.items():
+            t = torch.as_tensor(value).to(self.device, copy=True)
+            state[name] = t.requires_grad_(not (sparse and name in self.tables))
+        dense = {n: t for n, t in state.items() if not (sparse and n in self.tables)}
+        opt_state = self.optimizer.init(dense)
+        if sparse:
+            if accums is None:
+                rowwise = cfg.sparse_update_mode == "rowwise"
+                accums = {n: torch.full(state[n].shape[:1] if rowwise else state[n].shape,
+                                        0.1, dtype=torch.float32, device=self.device)
+                          for n in self.tables}
+            else:
+                accums = {n: torch.as_tensor(accums[n]).to(self.device, torch.float32,
+                                                           copy=True)
+                          for n in self.tables}
+            opt_state = (opt_state, accums)
+        return TrainState(state, opt_state, 0)
+
+    # -- steps ---------------------------------------------------------------
+    def _logits(self, params: Tensors, batch: Dict, **kwargs) -> Tensors:
+        return functional_call(
+            self.model, params,
+            (batch["non_seq"], batch["sequences"], batch["seq_valid"]), kwargs)
+
+    def _make_dummies(self, batch: Dict) -> Tensors:
+        """Zeros that receive the per-lookup embedding gradients."""
+        cfg = self.cfg
+        d = {f"ns_{f}": make_dummy(batch["non_seq"][f].shape, cfg.feature_embed_dim,
+                                   device=self.device)
+             for f in cfg.non_seq_features}
+        for sf in self._seq_names_of(batch):
+            d[f"seq_{sf}"] = make_dummy(batch["sequences"][sf].shape,
+                                        cfg.seq_item_feature_dim, device=self.device)
+        return d
+
+    @torch.no_grad()
+    def _apply_sparse_updates(self, params: Tensors, accums: Tensors,
+                              gdummies: Tensors, batch: Dict, lr: float) -> torch.Tensor:
+        """Touched-row adagrad on every table, in place; returns the number
+        of rows the scatter budget dropped."""
+        cfg = self.cfg
+        dropped = torch.zeros((), dtype=torch.long, device=self.device)
+        seq_names = self._seq_names_of(batch)
+        if seq_names:
+            item_vocab = cfg.vocab_size("item_id")
+            # padded positions carry exactly-zero gradients; their ids go to
+            # the out-of-range sentinel, whose writes are dropped
+            ids = torch.cat([
+                torch.where(batch["seq_valid"][sf], batch["sequences"][sf],
+                            item_vocab).reshape(-1) for sf in seq_names])
+            g = torch.cat([gdummies[f"seq_{sf}"].reshape(-1, cfg.seq_item_feature_dim)
+                           for sf in seq_names])
+            src = batch.get("sparse_scatter_src")
+            if src is not None:
+                n = ids.shape[0]
+                ok = src < n
+                safe = src.clamp_max(n - 1)
+                ids = torch.where(ok, ids[safe], item_vocab)
+                g = g[safe] * ok[:, None].to(g.dtype)
+                dropped = batch["sparse_overflow"]
+            elif 0 < cfg.sparse_scatter_budget < ids.shape[0]:
+                valid = torch.cat([batch["seq_valid"][sf].reshape(-1) for sf in seq_names])
+                ids, g, dropped = compact_valid_rows(
+                    ids, g, valid, cfg.sparse_scatter_budget, item_vocab)
+            name = "tokenizer.item_embed.weight"
+            self._update(params[name], accums[name], ids, g, lr)
+        for f in cfg.non_seq_features:
+            name = f"tokenizer.embeds.{f}.weight"
+            self._update(params[name], accums[name], batch["non_seq"][f],
+                         gdummies[f"ns_{f}"], lr)
+        return dropped
+
+    def _train_step(self, state: TrainState, batch: Dict,
+                    generator: Optional[torch.Generator] = None):
+        """One step on a ``_put_batch`` batch; ``generator`` (CPU) drives
+        dropout. Updates the state's tensors in place and returns
+        (the state one step on, metrics as device tensors)."""
+        cfg = self.cfg
+        params = state.params
+        sparse = cfg.use_sparse_embedding_updates
+        dummies = self._make_dummies(batch) if sparse else {}
+        logits = self._logits(params, batch, deterministic=False,
+                              dummies=dummies or None, generator=generator)
+        loss, metrics = multi_task_bce_loss(logits, batch["labels"])
+        names = [n for n, t in params.items() if t.requires_grad]
+        grads = torch.autograd.grad(
+            loss, [params[n] for n in names] + list(dummies.values()), allow_unused=True)
+        gparams = {n: torch.zeros_like(params[n]) if g is None else g
+                   for n, g in zip(names, grads)}
+        opt_state = state.opt_state[0] if sparse else state.opt_state
+        metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state)
+        if sparse:
+            gdummies = dict(zip(dummies, grads[len(names):]))
+            dropped = self._apply_sparse_updates(
+                params, state.opt_state[1], gdummies, batch,
+                self._sparse_lr(state.step) if callable(self._sparse_lr) else self._sparse_lr)
+            if cfg.sparse_scatter_budget > 0:
+                metrics["sparse_dropped_rows"] = dropped
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return state._replace(step=state.step + 1), metrics
+
+    @torch.no_grad()
+    def _eval_step(self, params: Tensors, batch: Dict, auc_states):
+        logits = self._logits(params, batch)
+        _, metrics = multi_task_bce_loss(logits, batch["labels"])
+        _, update, _ = self._auc
+        new_states = {t: update(auc_states[t], torch.sigmoid(logits[t]), batch["labels"][t])
+                      for t in logits}
+        return metrics, new_states
+
+    # -- loops ---------------------------------------------------------------
+    def evaluate(self, state: TrainState, val_batches: Iterator[Dict]) -> Dict[str, float]:
+        init, _, compute = self._auc
+        auc_states = {t: init() for t in self.cfg.tasks}
+        accum: Dict[str, list] = {}
+        for batch in val_batches:
+            metrics, auc_states = self._eval_step(state.params, self._put_batch(batch),
+                                                  auc_states)
+            for k, v in metrics.items():
+                accum.setdefault(k, []).append(float(v))
+        out = {k: float(np.mean(v)) for k, v in accum.items()}
+        for t in self.cfg.tasks:
+            out[f"{t}_auc"] = float(compute(auc_states[t]))
+        return out
+
+    def train(
+        self,
+        train_iter: Iterator[Dict],
+        num_steps: int,
+        val_fn=None,
+        eval_every: int = 1000,
+        log_every: int = 100,
+        early_stop_patience: Optional[int] = None,
+        seed: int = 0,
+        track_best_params: bool = False,
+    ) -> TrainState:
+        """Train from ``init_params(cfg, seed)`` for ``num_steps``; ``seed``
+        also seeds the dropout generator. Logs every
+        ``log_every`` steps into ``history["train"]``, evaluates
+        ``val_fn()`` every ``eval_every`` steps into ``history["val"]``, stops
+        after ``early_stop_patience`` evaluations without a better
+        primary-task AUC, and with ``track_best_params`` keeps a copy of the
+        best evaluation's params in ``best_params`` (with
+        ``best_val_step``, ``best_val_metrics``)."""
+        generator = torch.Generator().manual_seed(seed)
+        batch = next(train_iter)
+        state = self.init_state(seed=seed)
+        best_val = -float("inf")
+        self.best_params = None
+        self.best_val_step = None
+        self.best_val_metrics = None
+        bad_evals = 0
+        t0 = time.time()
+        for i in range(state.step, num_steps):
+            state, metrics = self._train_step(state, self._put_batch(batch), generator)
+            if (i + 1) % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                dt = time.time() - t0
+                m["steps_per_s"] = log_every / max(dt, 1e-9)
+                m["examples_per_s"] = m["steps_per_s"] * self.cfg.batch_size
+                self.logger.log("train", i + 1, m)
+                self.history["train"].append({"step": i + 1, **m})
+                t0 = time.time()
+            if val_fn is not None and (i + 1) % eval_every == 0:
+                vm = self.evaluate(state, val_fn())
+                self.logger.log("val", i + 1, vm)
+                self.history["val"].append({"step": i + 1, **vm})
+                primary = vm.get(f"{self.cfg.tasks[0]}_auc", -vm.get("loss", 0.0))
+                if primary > best_val:
+                    best_val = primary
+                    bad_evals = 0
+                    if track_best_params:
+                        # copies: the step updates the state's tensors in place
+                        self.best_params = {k: v.detach().clone()
+                                            for k, v in state.params.items()}
+                        self.best_val_step = i + 1
+                        self.best_val_metrics = dict(vm)
+                else:
+                    bad_evals += 1
+                    if early_stop_patience and bad_evals >= early_stop_patience:
+                        break
+                t0 = time.time()
+            if i + 1 < num_steps:
+                batch = next(train_iter)
+        return state

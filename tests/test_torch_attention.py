@@ -253,3 +253,178 @@ def test_wrappers_reject_bad_inputs():
         tfa.band_attn_mh_fwd(q, q.half(), q, torch.zeros(1, 8), 0.1, 0)
     with pytest.raises(TypeError):
         tfa.band_attn_bh_fwd(q, q, q, torch.zeros(1, 8, dtype=torch.float64), 0.1, 0)
+
+
+# ---------------------------------------------------------------------------
+# Backward halves: the port's autograd Functions (plain backward on CPU
+# tensors) against jax.vjp of the Pallas kernels in interpret mode, and the
+# plain backward against torch.autograd through the plain forward. float32;
+# gradients reach |g| ~ 10 here, held at atol/rtol 1e-4.
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _vjp(fn, args, do):
+    import jax
+
+    with pltpu.force_tpu_interpret_mode():
+        out, pull = jax.vjp(fn, *map(jnp.asarray, args))
+        return out, pull(jnp.asarray(do))
+
+
+def _torch_grads(fn, args, do):
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    out = fn(*ts)
+    return out, torch.autograd.grad(out, ts, torch.from_numpy(do))
+
+
+def _close_grads(t_grads, j_grads, names):
+    for t, j, name in zip(t_grads, j_grads, names):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name, **GRAD_TOL)
+
+
+BWD_BH_CASES = [
+    # (bh, lq, lkv, dh, pad, causal, full_pad_row); small blocks below, so
+    # several tiles and the skip of tiles above the band occur
+    (2, 40, 100, 64, 9, True, False),
+    (3, 24, 56, 32, 5, True, True),
+    (2, 32, 32, 16, 0, False, False),
+]
+
+
+@pytest.mark.parametrize("case", BWD_BH_CASES)
+def test_blocked_backward_matches_flash_kernel_vjp(case):
+    """B2dq + B2dkv against _dq_kernel/_dkv_kernel (blocks 16 x 32)."""
+    bh, lq, lkv, dh, pad, causal, full = case
+    rng = np.random.default_rng(7)
+    q, k, v = _normal(rng, bh, lq, dh), _normal(rng, bh, lkv, dh), _normal(rng, bh, lkv, dh)
+    do = _normal(rng, bh, lq, dh)
+    bias = _bias(rng, bh, lkv, pad, full)
+    scale, off = 1.0 / dh ** 0.5, lkv - lq
+    j_out, j_grads = _vjp(lambda q, k, v: jfa.flash_band_attention(
+        q, k, v, jnp.asarray(bias), scale, off, causal, 16, 32), (q, k, v), do)
+    bias_t = torch.from_numpy(bias)
+    t_out, t_grads = _torch_grads(lambda q, k, v: tfa.flash_band_attention(
+        q, k, v, bias_t, scale, off, causal), (q, k, v), do)
+    _close(t_out.detach(), j_out)
+    _close_grads(t_grads, j_grads, ("dq", "dk", "dv"))
+    assert all(torch.isfinite(g).all() for g in t_grads)
+
+
+@pytest.mark.parametrize("case", BWD_BH_CASES)
+def test_bh_backward_matches_fused_kernel_vjp(case):
+    """B4b against _fused_bwd_kernel (group 2)."""
+    bh, lq, lkv, dh, pad, causal, full = case
+    rng = np.random.default_rng(8)
+    q, k, v = _normal(rng, bh, lq, dh), _normal(rng, bh, lkv, dh), _normal(rng, bh, lkv, dh)
+    do = _normal(rng, bh, lq, dh)
+    bias = _bias(rng, bh, lkv, pad, full)
+    scale, off = 1.0 / dh ** 0.5, lkv - lq
+    j_out, j_grads = _vjp(lambda q, k, v: jfa.fused_band_attention(
+        q, k, v, jnp.asarray(bias), scale, off, causal, 2), (q, k, v), do)
+    bias_t = torch.from_numpy(bias)
+    t_out, t_grads = _torch_grads(lambda q, k, v: tfa.fused_band_attention(
+        q, k, v, bias_t, scale, off, causal), (q, k, v), do)
+    _close(t_out.detach(), j_out)
+    _close_grads(t_grads, j_grads, ("dq", "dk", "dv"))
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segkv_backward_matches_fmhseg_kernel_vjp(case):
+    """B1b against _fmhseg_bwd_kernel: dq, dk_s, dv_s, dk_ns, dv_ns."""
+    b, lq, ls, n, h, dh, pad = case
+    rng = np.random.default_rng(9)
+    hd = h * dh
+    args = (_normal(rng, b, lq, hd), _normal(rng, b, ls, hd), _normal(rng, b, ls, hd),
+            _normal(rng, b, n, hd), _normal(rng, b, n, hd))
+    do = _normal(rng, b, lq, hd)
+    bias = _bias(rng, b, ls, pad)
+    scale, off = 1.0 / dh ** 0.5, ls + n - lq
+    j_out, j_grads = _vjp(lambda *a: jfa.fused_mhseg_band_attention(
+        *a, jnp.asarray(bias), scale, off, True, h, 1), args, do)
+    bias_t = torch.from_numpy(bias)
+    t_out, t_grads = _torch_grads(lambda *a: tfa.fused_mhseg_band_attention(
+        *a, bias_t, scale, off, True, h), args, do)
+    _close(t_out.detach(), j_out)
+    _close_grads(t_grads, j_grads, ("dq", "dk", "dv", "dkns", "dvns"))
+
+
+def _autograd_of_plain_fwd(fwd, args, do):
+    ts = [a.clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(fwd(*ts), ts, do)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backwards_match_autograd_of_plain_forwards(causal):
+    """Each *_bwd_plain, fed the plain forward's lse and delta, equals
+    torch.autograd through the plain forward (float32, atol/rtol 1e-5). Rows
+    here all have a valid key: on a fully padded row lse = -1e9 + log n
+    rounds to -1e9 in float32, so the recomputed p is 1, not 1/n, in the
+    Pallas kernels and in the port alike (held above against their vjp);
+    in the model such a row's dO is exactly 0."""
+    rng = np.random.default_rng(10)
+    t = lambda *s: torch.from_numpy(_normal(rng, *s))
+    bh, lq, lkv, dh = 3, 20, 45, 32
+    q, k, v, do = t(bh, lq, dh), t(bh, lkv, dh), t(bh, lkv, dh), t(bh, lq, dh)
+    bias = torch.from_numpy(_bias(rng, bh, lkv, 6))
+    scale, off = 1.0 / dh ** 0.5, lkv - lq
+    out, lse = tfa.band_attn_bh_fwd_plain(q, k, v, bias, scale, off, causal)
+    delta = tfa._delta(out, do)
+    ref = _autograd_of_plain_fwd(
+        lambda q, k, v: tfa.band_attn_bh_fwd_plain(q, k, v, bias, scale, off, causal)[0],
+        (q, k, v), do)
+    got = tfa.band_attn_bh_bwd_plain(q, k, v, bias, do, lse, delta, scale, off, causal)
+    split = (tfa.band_attn_blocked_bwd_dq_plain(q, k, v, bias, do, lse, delta, scale,
+                                                off, causal),
+             *tfa.band_attn_blocked_bwd_dkv_plain(q, k, v, bias, do, lse, delta, scale,
+                                                  off, causal))
+    for a, b_, c in zip(got, split, ref):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5, rtol=1e-5)
+        assert torch.equal(a, b_)
+
+    b, h, n, ls = 2, 2, 4, 30
+    q, do = t(b, lq, h * dh), t(b, lq, h * dh)
+    k, v, kns, vns = t(b, ls, h * dh), t(b, ls, h * dh), t(b, n, h * dh), t(b, n, h * dh)
+    s_bias = torch.from_numpy(_bias(rng, b, ls, 5))
+    off = ls + n - lq
+    out, lse = tfa.band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, scale, off,
+                                             causal, h)
+    ref = _autograd_of_plain_fwd(
+        lambda *a: tfa.band_attn_segkv_fwd_plain(*a, s_bias, scale, off, causal, h)[0],
+        (q, k, v, kns, vns), do)
+    got = tfa.band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse,
+                                        tfa._delta(out, do, h), scale, off, causal, h)
+    for a, c in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_every_preset_head_width_has_a_kernel():
+    """Dh of every preset (ranking_base 384/4 = 96 included) is instantiated,
+    and a Dh-96 call dispatches as the JAX package's does."""
+    from recommend_tpu_torch.config import get_config
+
+    for name in ("ranking_base", "ranking_small", "ranking_large"):
+        cfg = get_config(name)
+        assert cfg.embed_dim // cfg.num_heads in tfa._KERNEL_DH, name
+    assert 96 in tfa._KERNEL_DH and all(d % 16 == 0 for d in tfa._KERNEL_DH)
+    for segmented, shape in [(False, (1, 91, 194, 4, 96)),
+                             (True, (1, 103, 194, 12, 4, 96))]:
+        j = _routes(jfa, jnp.asarray, jnp.zeros_like, segmented, shape)
+        t = _routes(tfa, torch.from_numpy, torch.zeros_like, segmented, shape)
+        assert t == j == ["fused_band_attention"], (j, t)
+
+
+def test_backward_wrappers_reject_bad_statistics():
+    q = torch.zeros(2, 8, 32)
+    k = torch.zeros(2, 12, 32)
+    bias = torch.zeros(2, 12)
+    with pytest.raises(ValueError):
+        tfa.band_attn_bh_bwd(q, k, k, bias, q, torch.zeros(2, 7), torch.zeros(2, 8),
+                             0.1, 4)
+    with pytest.raises(TypeError):
+        tfa.band_attn_blocked_bwd_dq(q, k, k, bias, q, torch.zeros(2, 8),
+                                     torch.zeros(2, 8, dtype=torch.float64), 0.1, 4)
+    with pytest.raises(TypeError):
+        tfa.band_attn_blocked_bwd_dkv(q, k, k, bias, q.bfloat16(), torch.zeros(2, 8),
+                                      torch.zeros(2, 8), 0.1, 4)

@@ -3,8 +3,8 @@
 - ``recommend_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor flax,
   optax, orbax) nor anything of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
-- the engine and the initializer run on CUDA unless told otherwise, and
-  raise without it;
+- the engine, the initializer and the trainer run on CUDA unless told
+  otherwise, and raise without it;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises.
 """
@@ -30,7 +30,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommend_tpu")
 
 def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py"]
 
 
 def _imported_modules(path: Path):
@@ -96,10 +96,28 @@ def test_init_params_without_cuda_raises_unless_told_cpu(monkeypatch):
     assert all(t.device.type == "cpu" for t in params.values())
 
 
+def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+    from __graft_entry__ import _tiny_cfg
+    from tests.test_torch_ranking import port_config
+
+    cfg = port_config(_tiny_cfg())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="RankingTrainer: no CUDA device"):
+        RankingTrainer(cfg)
+    state = RankingTrainer(cfg, device="cpu").init_state(seed=0)
+    assert all(t.device.type == "cpu" for t in state.params.values())
+    # not ported yet: each raises rather than being ignored
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        RankingTrainer(cfg, device="cpu", checkpoint_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        RankingTrainer(cfg, device="cpu", mesh=object())
+
+
 def test_cuda_entry_points_match_their_bindings():
-    src = (_build.CSRC / "band_attention.cu").read_text()
-    extern = src[src.index('extern "C"'):]
     for name, argtypes in tfa._SIGNATURES.items():
+        src = (_build.CSRC / f"{tfa.LIBRARY[name]}.cu").read_text()
+        extern = src[src.index('extern "C"'):]
         m = re.search(rf"int {name}\(([^)]*)\)", extern)
         assert m, f"{name} is not an extern C entry point"
         params = [p.strip() for p in m.group(1).split(",")]
@@ -108,7 +126,8 @@ def test_cuda_entry_points_match_their_bindings():
             c_type = p.rsplit(" ", 1)[0]
             kind = "pointer" if "*" in c_type else c_type
             assert {"pointer": tfa._P, "int": tfa._I, "float": tfa._F}[kind] is t, (name, p)
-    assert set(tfa._SIGNATURES) == set(tfa.LAUNCHES)
+    assert set(tfa._SIGNATURES) == set(tfa.LAUNCHES) == set(tfa.LIBRARY)
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(tfa.LIBRARY.values())
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
