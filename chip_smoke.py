@@ -9,12 +9,13 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the band-attention kernels from csrc/ with nvcc (sm_90a), one
    nvcc per source, all at once;
 3. hold each of the four forward kernels against its plain PyTorch version
-   at the serving shapes (and the bh kernel at Dh 96, ranking_base's head
-   width), in bf16 and f32, and time kernel, plain version and
+   at the serving shapes (the bh kernel also at Dh 96, ranking_base's head
+   width, and the mh kernel first at the S-trunk gradient's shapes), in bf16
+   and f32, and time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   with CUDA events, beside the kernel's bound; then the same for the four
-   backward kernels at the training shapes, against their plain backward
-   and SDPA's backward;
+   with CUDA events, beside the kernel's bound; then the same for the five
+   backward kernels at the training shapes (B3b at the S-trunk gradient's
+   shapes), against their plain backward and SDPA's backward;
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -33,7 +34,23 @@ Phases, in order; any failure raises and exits non-zero:
    exactly, and, in float32 on one batch, that one step through the kernels
    agrees with one step through the plain attention path (loss, dense
    gradient norm, table updates);
-6. print the kernels' JSON line, then the result line.
+6. SG, the S-trunk gradient: at TA's widths and traffic (2 heads, Dh 128,
+   116 items per sequence, batch 512, bf16), N_SG backward passes of a
+   scalar of ``encode_s``'s cache through a ``RankingModel`` whose dense
+   parameters require grad; asserts the model-layout kernels' launch counts
+   (B3f and B3b once per pass in every layer keeping >= 64 S rows) and, in
+   float32, the gradient norm through the kernels against the plain path;
+7. S, the cross-request session cache at the JAX serving bench's config
+   (examples/serving_bench.py: 4 heads, Dh 64, window 64, 48 items per
+   sequence, 100 candidates, Δ-mix 1/2/4/8, the deployment profile with
+   ``maintain()`` between pairs, outside the timers): N_SESSION_PAIRS
+   interleaved ``score_request`` / ``score_session`` pairs on one session
+   after ``warmup``, timed on the host clock (p50/p99 with n, the paired
+   delta, the session's win fraction); asserts the encode launches exactly,
+   ``score_session`` against ``score_request`` at a re-anchor (bf16 and
+   float32) and, without pruning, a refresh/append/fold/append chain
+   against ``score_request`` in float32;
+8. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -51,6 +68,10 @@ N_BATCH = 20  # batch_inference calls per phase
 # training steps per phase: warm-up, then timed
 N_TRAIN_WARMUP = 3
 N_TRAIN = 20
+N_SG = 20  # S-trunk backward passes, as many as the training steps
+SG_ITEMS, SG_BATCH = 116, 512  # phase SG: TA's items per sequence and batch
+N_SESSION_PAIRS = 400  # score_request / score_session pairs
+SESSION_DELTAS = (1, 2, 4, 8)  # items appended per session request, cycled
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense peaks
 PEAK_BYTES = 3.35e12
 # Kernel against plain version, output error: in bf16 relative to the
@@ -94,7 +115,8 @@ KERNELS = [
         dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
     ]),
     ("band_attn_mh_fwd", "recommend_tpu/ops/pallas/flash_attention.py:620", [
-        # encode_s: phase B layers 1-3, phase A layer 0
+        # after phase SG's shapes (put first in main): encode_s serving,
+        # phase B layers 1-3, phase A layer 0
         dict(b=1, h=2, lq=352, ls=595, n=0, dh=128),
         dict(b=1, h=2, lq=231, ls=352, n=0, dh=128),
         dict(b=1, h=2, lq=109, ls=231, n=0, dh=128),
@@ -213,13 +235,13 @@ def bound(t, out, lse, shape, dtype_name):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernels(fa):
+def check_kernels(fa, kernels):
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     entries = {}
-    for name, replaces, shapes in KERNELS:
+    for name, replaces, shapes in kernels:
         for i, shape in enumerate(shapes):
             for dtype in (torch.bfloat16, torch.float32):
                 dn = str(dtype).split(".")[1]
@@ -278,12 +300,21 @@ BWD_KERNELS = [
         dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64),
         dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
     ]),
+    # phase SG's shapes only, put in by main. Dh 128 only: the dispatcher
+    # sends model-layout attention here only when Dh % 128 == 0
+    ("band_attn_mh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:654", []),
 ]
+# the kernels phase SG runs: checked first at its shapes
+SG_KERNELS = ("band_attn_mh_fwd", "band_attn_mh_bwd")
 # flops per (row, key) pair in the band: the dq pass recomputes s and dp and
 # forms dQ (3 products), the dkv pass s, dp, dV and dK (4); the one-kernel
 # backwards do the five products of the function (2.5x the forward's 4 Dh)
 BWD_FLOPS_PER_DH = {"band_attn_blocked_bwd_dq": 6, "band_attn_blocked_bwd_dkv": 8,
-                    "band_attn_bh_bwd": 10, "band_attn_segkv_bwd": 10}
+                    "band_attn_bh_bwd": 10, "band_attn_mh_bwd": 10,
+                    "band_attn_segkv_bwd": 10}
+# the forward kernel each backward kernel's inputs (lse, delta) come from
+FWD_OF = {"band_attn_segkv_bwd": "band_attn_segkv_fwd",
+          "band_attn_mh_bwd": "band_attn_mh_fwd"}
 
 
 def band_pairs(shape) -> int:
@@ -301,10 +332,11 @@ def bwd_inputs(name, shape, dtype, gen, fa):
 
     t = make_inputs(shape, dtype, gen)
     t["do"] = torch.randn(t["q"].shape, generator=gen, device="cuda").to(dtype)
-    fwd = "band_attn_segkv_fwd" if name == "band_attn_segkv_bwd" else "band_attn_bh_fwd"
+    fwd = FWD_OF.get(name, "band_attn_bh_fwd")
     out, lse = call(fwd, t, shape, fa)
     t["lse"] = lse
-    t["delta"] = fa._delta(out, t["do"], shape["h"] if shape["n"] else 0)
+    # model layout: per-head statistics [B, H, Lq]
+    t["delta"] = fa._delta(out, t["do"], shape["h"] if name in FWD_OF else 0)
     return t
 
 
@@ -314,6 +346,9 @@ def bwd_call(name, t, shape, fa, plain=False):
     if name == "band_attn_segkv_bwd":
         out = fn(t["q"], t["k"], t["v"], t["kns"], t["vns"], t["bias"], t["do"],
                  t["lse"], t["delta"], scale, off, True, shape["h"])
+    elif name == "band_attn_mh_bwd":
+        out = fn(t["q"], t["k"], t["v"], t["bias"], t["do"], t["lse"], t["delta"],
+                 scale, off, True, shape["h"])
     else:
         out = fn(t["q"], t["k"], t["v"], t["bias"], t["do"], t["lse"], t["delta"],
                  scale, off, True)
@@ -347,7 +382,7 @@ def library_bwd(name, t, shape):
     return lambda: torch.autograd.grad(out, wrt, do, retain_graph=True)
 
 
-def check_backward_kernels(fa):
+def check_backward_kernels(fa, kernels):
     """Each backward kernel against its plain backward at the training
     shapes, in bf16 (about one ulp: 1e-2 of each output's max|ref|) and f32
     (1e-4 of max|ref|), with its time, the plain and SDPA-backward times and
@@ -359,7 +394,7 @@ def check_backward_kernels(fa):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     entries = {}
-    for name, replaces, shapes in BWD_KERNELS:
+    for name, replaces, shapes in kernels:
         for i, shape in enumerate(shapes):
             for dtype in (torch.bfloat16, torch.float32):
                 dn = str(dtype).split(".")[1]
@@ -641,6 +676,245 @@ def train_phase(label, heads, items, batch_size, per_step, fa, totals):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase SG: the gradient of the S trunk
+# ---------------------------------------------------------------------------
+
+
+def s_trunk_kernel_shapes(cfg, items: int, batch: int):
+    """The model-layout kernel shapes of ``encode_s`` at ``items`` per
+    sequence, from ``pyramid_keep_lengths``: one per layer whose kept S
+    window reaches the 64-query gate, as KERNELS' shape dicts."""
+    from recommend_tpu_torch.models.ranking import pyramid_keep_lengths
+
+    n = cfg.num_ns_tokens
+    ls = len(cfg.sequence_features) * (items + 1) - 1  # [SEP] between sequences
+    shapes = []
+    for keep in pyramid_keep_lengths(cfg, ls + n):
+        keep_s = keep - n
+        if keep_s <= 0:
+            break
+        if keep_s >= 64:
+            shapes.append(dict(b=batch, h=cfg.num_heads, lq=keep_s, ls=ls, n=0,
+                               dh=cfg.embed_dim // cfg.num_heads))
+        ls = keep_s
+    return shapes
+
+
+def s_trunk_grads(model, names, seqs, sv, noise):
+    """Gradients of L = sum over layers of <k_s, R_k> + <v_s, R_v> over
+    ``encode_s``'s cache, each R masked by the layer's key validity (on a
+    fully padded query row the kernel backward recomputes p = 1 where the
+    plain path's autograd gives 1/n; the mask makes dO there exactly 0)."""
+    import torch
+
+    cache = model.encode_s(seqs, sv)
+    loss = 0.0
+    for (k, v, valid), (rk, rv) in zip(cache, noise):
+        m = valid[..., None, None]
+        loss = loss + (k.float() * (rk * m)).sum() + (v.float() * (rv * m)).sum()
+    params = dict(model.named_parameters())
+    # the NS stacks and heads take no part in encode_s: no gradient
+    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    return [g for g in grads if g is not None]
+
+
+def s_trunk_phase(fa, totals):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params, table_param_names
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.models.ranking import RankingModel
+
+    t0 = time.perf_counter()
+    items, batch_size = SG_ITEMS, SG_BATCH
+    cfg = training_config(2, batch_size)  # TA's widths
+    data = make_ranking_data(cfg, num_samples=batch_size, max_seq_per_feature=items,
+                             seed=SEED)
+    batch = next(ranking_batches(data, cfg, batch_size=batch_size, seed=SEED))
+    seqs = {k: torch.from_numpy(v).cuda() for k, v in batch["sequences"].items()}
+    sv = {k: torch.from_numpy(v).cuda() for k, v in batch["seq_valid"].items()}
+    params = init_params(cfg, seed=SEED, device="cuda")
+    tables = set(table_param_names(cfg))
+    names = [n for n in params if n not in tables]
+
+    def model_for(c):
+        with torch.device("meta"):
+            model = RankingModel(c)
+        model.load_state_dict(params, assign=True)
+        for name, p in model.named_parameters():
+            p.requires_grad_(name not in tables)
+        return model
+
+    model = model_for(cfg)
+    with torch.no_grad():
+        shapes = [tuple(k.shape) for k, _, _ in model.encode_s(seqs, sv)]
+    rng = np.random.default_rng(SEED)
+    noise = [tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+                   for _ in range(2)) for s in shapes]
+    per_pass = len(s_trunk_kernel_shapes(cfg, items, batch_size))
+    s_trunk_grads(model, names, seqs, sv, noise)  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    times = []
+
+    def run():
+        for _ in range(N_SG):
+            t = time.perf_counter()
+            grads = s_trunk_grads(model, names, seqs, sv, noise)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            assert all(torch.isfinite(g).all() for g in grads), "SG: non-finite gradient"
+
+    _, got = counted(fa, run, {"band_attn_mh_fwd": per_pass,
+                               "band_attn_mh_bwd": per_pass}, N_SG)
+    for k in got:
+        totals[k] += got[k]
+    del model
+    # float32 on the same batch: through the kernels and through the plain path
+    norms = []
+    for flash in (True, False):
+        c = dataclasses.replace(cfg, use_mixed_precision=False, use_flash_attention=flash)
+        grads = s_trunk_grads(model_for(c), names, seqs, sv, noise)
+        norms.append(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item())
+        del grads
+    norm_err = abs(norms[0] - norms[1]) / norms[1]
+    assert norm_err <= F32_STEP_NORM_TOL, f"SG: f32 grad norm {norms[0]} vs plain {norms[1]}"
+    log(f"phase SG: heads 2, {items} items/sequence, batch {batch_size}, kernel layers "
+        f"{per_pass} | S-trunk backward n={len(times)} p50 {np.percentile(times, 50):.3f} "
+        f"ms p99 {np.percentile(times, 99):.3f} ms | launches {got} | f32 kernels-vs-"
+        f"plain grad norm {norms[0]:.6g} vs {norms[1]:.6g}, rel {norm_err:.2e} | setup "
+        f"{setup_s:.1f} s [{CARD}]")
+    del params, noise
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase S: the cross-request session cache
+# ---------------------------------------------------------------------------
+
+
+def session_phase(fa, totals):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.models.ranking import pyramid_keep_lengths
+    from recommend_tpu_torch.serving.ranking_service import RankingInferenceEngine
+
+    t0 = time.perf_counter()
+    window, items = 64, 48
+    cfg = serving_config(4)  # examples/serving_bench.py's config, kernels on
+    params = init_params(cfg, seed=SEED, device="cuda")
+    engine = RankingInferenceEngine(cfg, params, max_seq_len=window, device="cuda")
+    assert engine.auto_maintain is False and engine.fold_headroom >= max(SESSION_DELTAS)
+    engine.warmup(N_CANDIDATES, deltas=SESSION_DELTAS)
+    n = cfg.num_ns_tokens
+    s_len = len(cfg.sequence_features) * (window + 1) - 1
+    per_encode = sum(1 for keep in pyramid_keep_lengths(cfg, s_len + n) if keep - n >= 64)
+    # the serving bench's ids: features in [0, 100) (here below each
+    # feature's vocabulary too: hour, weekday and device have fewer rows, and
+    # an id past a table raises in the port), items in [0, 1000)
+    rng = np.random.default_rng(SEED)
+    vocab = dict(cfg.feature_vocab_sizes)
+    draw = lambda f: int(rng.integers(0, min(100, vocab[f])))
+    user = {f: draw(f) for f in cfg.user_features + cfg.context_features}
+    history = {sf: rng.integers(0, 1000, size=items).tolist()
+               for sf in cfg.sequence_features}
+    sf0 = cfg.sequence_features[0]
+    cands = [[{f: draw(f) for f in cfg.item_features}
+              for _ in range(N_CANDIDATES)] for _ in range(2 * N_SESSION_PAIRS + 4)]
+    new = [rng.integers(0, 1000, size=SESSION_DELTAS[i % len(SESSION_DELTAS)]).tolist()
+           for i in range(N_SESSION_PAIRS)]
+    engine.update_session("u1", history)
+    refreshes = 0
+    refresh = engine.refresh_session
+
+    def counting_refresh(sid):
+        nonlocal refreshes
+        refreshes += 1
+        refresh(sid)
+
+    engine.refresh_session = counting_refresh
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    lat_req, lat_sess = [], []
+    maintained = 0
+    fa.reset_launch_counts()
+    for i in range(N_SESSION_PAIRS):
+        t = time.perf_counter()
+        engine.score_request(user, history, cands[2 * i])
+        lat_req.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        out = engine.score_session("u1", user, cands[2 * i + 1], new_items={sf0: new[i]})
+        lat_sess.append((time.perf_counter() - t) * 1e3)
+        assert len(out) == N_CANDIDATES and all(
+            0.0 <= p <= 1.0 for row in out for p in row.values()), out[0]
+        maintained += engine.maintain()  # idle time between requests
+    got = dict(fa.LAUNCHES)
+    want = {k: 0 for k in got}
+    want["band_attn_bh_fwd"] = (N_SESSION_PAIRS + refreshes) * per_encode
+    assert got == want, f"S: launch counts {got}, expected {want}"
+    for k in got:
+        totals[k] += got[k]
+    engine.refresh_session = refresh
+    memory_mb = engine.session_memory_mb()
+
+    # at a re-anchor the session scores as score_request does, bf16 and f32
+    tasks = cfg.tasks
+    engine.refresh_session("u1")
+    ids = {sf: list(v) for sf, v in engine._sessions["u1"]["ids"].items()}
+    c = cands[-1]
+    bf16_err = max_diff(engine.score_session("u1", user, c),
+                        engine.score_request(user, ids, c), tasks)
+    e32 = RankingInferenceEngine(dataclasses.replace(cfg, use_mixed_precision=False),
+                                 params, max_seq_len=window, device="cuda")
+    e32.update_session("u1", ids)
+    f32_err = max_diff(e32.score_session("u1", user, c), e32.score_request(user, ids, c),
+                       tasks)
+    assert bf16_err <= BF16_BATCH_TOL, f"S: bf16 session vs request {bf16_err}"
+    assert f32_err <= F32_PATH_TOL, f"S: f32 session vs request {f32_err}"
+    del engine, e32
+    # no pruning, one sequence: refresh, appends, a fold, more appends
+    flat = RankingInferenceEngine(
+        dataclasses.replace(cfg, use_mixed_precision=False,
+                            pyramid_ratios=(1.0,) * cfg.num_layers,
+                            sequence_features=(sf0,)),
+        params, max_seq_len=window, device="cuda")
+    flat.update_session("np", {sf0: history[sf0][:40]})
+    chain_err, folds = 0.0, 0
+    for d in (4, 8, 8, 2, 1):
+        flat.update_session("np", {sf0: rng.integers(0, 1000, size=d).tolist()})
+        folds = max(folds, flat._sessions["np"]["compactions"])
+        sess_ids = {sf0: list(flat._sessions["np"]["ids"][sf0])}
+        chain_err = max(chain_err, max_diff(flat.score_session("np", user, c),
+                                            flat.score_request(user, sess_ids, c), tasks))
+    assert folds == 1, f"S: the chain folded {folds} times"
+    assert chain_err <= F32_PATH_TOL, f"S: f32 no-pruning chain vs request {chain_err}"
+    del flat, params
+    torch.cuda.empty_cache()
+
+    d = np.asarray(lat_sess) - np.asarray(lat_req)
+    wins = float((d < 0).sum() / max(int(np.count_nonzero(d)), 1))
+    log(f"phase S: heads 4, window {window}, {items} items/sequence, {N_CANDIDATES} "
+        f"candidates, delta mix {SESSION_DELTAS}, deployment profile | score_request "
+        f"n={len(lat_req)} p50 {np.percentile(lat_req, 50):.3f} ms p99 "
+        f"{np.percentile(lat_req, 99):.3f} ms; score_session n={len(lat_sess)} p50 "
+        f"{np.percentile(lat_sess, 50):.3f} ms p99 {np.percentile(lat_sess, 99):.3f} ms; "
+        f"paired delta p50 {np.percentile(d, 50):.3f} ms, session wins {wins:.3f} | "
+        f"maintained {maintained}, refreshes {refreshes}, session memory "
+        f"{memory_mb:.3f} MB | launches {got} | re-anchor session-vs-request bf16 "
+        f"{bf16_err:.2e}, f32 {f32_err:.2e}; f32 no-pruning chain {chain_err:.2e} "
+        f"| setup {setup_s:.1f} s [{CARD}]")
+
+
 def main() -> int:
     global CARD
     import torch
@@ -667,8 +941,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {lib.stem.split('-')[0]}: " + line.strip())
 
-    entries = check_kernels(fa)
-    entries.update(check_backward_kernels(fa))
+    sg = s_trunk_kernel_shapes(training_config(2, SG_BATCH), SG_ITEMS, SG_BATCH)
+    log(f"phase SG's model-layout shapes from pyramid_keep_lengths: {sg}")
+    fwd, bwd = ([(name, replaces, sg + shapes if name in SG_KERNELS else shapes)
+                 for name, replaces, shapes in kernels]
+                for kernels in (KERNELS, BWD_KERNELS))
+    entries = check_kernels(fa, fwd)
+    entries.update(check_backward_kernels(fa, bwd))
     totals = {name: 0 for name in fa.LAUNCHES}
     # per call: score_request (encode_s) and batch_inference (full forward)
     serve_phase("A", 2, 64, 48,
@@ -680,6 +959,8 @@ def main() -> int:
                 {"band_attn_bh_fwd": 1}, {"band_attn_bh_fwd": 1}, fa, totals)
     for label, heads, items, batch_size, per_step in TRAIN_PHASES:
         train_phase(label, heads, items, batch_size, per_step, fa, totals)
+    s_trunk_phase(fa, totals)
+    session_phase(fa, totals)
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

@@ -10,7 +10,12 @@ clock), then traces a few calls of each with ``torch.profiler`` and prints,
 per call: the unprofiled wall time, the profiled wall time, device busy time
 (the sum of kernel times in the trace), the card's idle share against the
 unprofiled wall time, the number of kernels launched, the band-attention
-kernels' device time, and the kernels that took most device time.
+kernels' device time, and the kernels that took most device time. At
+phase C's config, which is chip_smoke's phase S (the session cache), it
+measures ``score_session`` with one new item per call the same way, each
+call followed by ``maintain()``: the fold that the session queues (and,
+after every fourth fold, the re-anchor) is timed and traced with the call
+that made it due.
 """
 
 from __future__ import annotations
@@ -98,6 +103,16 @@ def main() -> int:
                 lambda: engine.score_request(user, seqs, cands), N_SCORE)
         measure(label, "batch_inference", lambda: engine.batch_inference(rows),
                 N_BATCH)
+        if label == "C":
+            sf0 = cfg.sequence_features[0]
+            engine.update_session("p", seqs)
+
+            def session_call():
+                engine.score_session("p", user, cands, new_items={sf0: [7]})
+                engine.maintain()
+
+            measure(label, "score_session (1 new item) + maintain", session_call,
+                    N_SCORE)
         del engine
         torch.cuda.empty_cache()
     return 0

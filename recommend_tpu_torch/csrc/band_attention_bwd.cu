@@ -1,11 +1,12 @@
 // Band-masked attention backward kernels for Hopper (sm_90a).
 //
-// Four entry points, one per Pallas backward kernel of
-// recommend_tpu/ops/pallas/flash_attention.py that a training step reaches:
+// Five entry points, one per Pallas backward kernel of
+// recommend_tpu/ops/pallas/flash_attention.py:
 //
 //   band_attn_blocked_bwd_dq   replaces _dq_kernel         (flash_band_attention, B2dq)
 //   band_attn_blocked_bwd_dkv  replaces _dkv_kernel        (flash_band_attention, B2dkv)
 //   band_attn_bh_bwd           replaces _fused_bwd_kernel  (fused_band_attention, B4b)
+//   band_attn_mh_bwd           replaces _fmh_bwd_kernel    (fused_mh_band_attention, B3b)
 //   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel (fused_mhseg_band_attention, B1b)
 //
 // What they compute, given the forward's inputs, its per-row logsumexp lse,
@@ -21,7 +22,10 @@
 // rounding points of the Pallas kernels. The segmented form joins a second
 // key/value segment (the NS tokens, all valid, no bias) at positions
 // L1..L1+L2-1 and writes its gradients into separate tensors, so the joined
-// keys are never copied. Keys past the end and rows past Lq are excluded.
+// keys are never copied; the model-layout form is the segmented one with
+// L2 = 0 and no second segment (its pointers are null and never touched:
+// every read and write of segment 2 sits behind key >= L1, and no key
+// reaches L1 + L2 = L1). Keys past the end and rows past Lq are excluded.
 //
 // Design: two passes in the style of FlashAttention-2, with no atomics.
 // - dq pass: one block per (batch, head, 64-row query tile); it loops over the
@@ -523,6 +527,29 @@ int band_attn_bh_bwd(const void* q, const void* k, const void* v,
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, dk, dv,
                       lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, bh, dh, dtype, DQ | DKV, stream);
+}
+
+// B3b: dQ, dK and dV of the whole-tile band attention in model layout,
+// q/dO [B, Lq, H*Dh], k/v [B, Lkv, H*Dh] with head h in columns h*Dh ..
+// h*Dh+Dh-1, bias [B, Lkv] shared by the heads, lse and delta [B, H, Lq]:
+// the segmented passes with one key segment (L2 = 0, null segment-2
+// pointers with zero strides).
+int band_attn_mh_bwd(const void* q, const void* k, const void* v,
+                     const float* bias, const void* dout, const float* lse,
+                     const float* delta, void* dq, void* dk, void* dv, int b,
+                     int h, int lq, int lkv, int dh, int q_offset, int causal,
+                     float sm_scale, int dtype, void* stream) {
+  const long long hd = (long long)h * dh;
+  BwdArgs a{};
+  a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
+  a.k = k; a.v = v; a.kv_bs = lkv * hd; a.kv_hs = dh; a.kv_rs = hd;
+  a.bias = bias; a.bias_bs = lkv; a.bias_hs = 0;
+  a.k2 = nullptr; a.v2 = nullptr; a.kv2_bs = 0; a.kv2_hs = 0; a.kv2_rs = 0;
+  a.dout = dout; a.lse = lse; a.delta = delta;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.dk2 = nullptr; a.dv2 = nullptr;
+  a.H = h; a.Lq = lq; a.L1 = lkv; a.L2 = 0;
+  a.q_offset = q_offset; a.causal = causal; a.sm_scale = sm_scale;
+  return launch(a, b, dh, dtype, DQ | DKV, stream);
 }
 
 // B1b: model layout [B, L, H*Dh] with the keys in two segments, S [B, Ls,

@@ -12,6 +12,14 @@ per-layer S keys/values, and ``score_with_cache`` scores any number of
 candidates through the NS-only path over that cache. It equals the full
 forward.
 
+The cross-request session cache builds on it: ``pad_s_cache`` gives a
+refresh cache spare invalid rows, ``extend_s_cache`` appends the K/V of a
+few new behavior items per layer into extension buffers (one trunk step over
+the new tokens only), ``compact_s_cache`` folds full buffers into the spare
+rows, and ``score_with_cache_ext`` scores over cache and extension. Unlike
+the JAX package's functional updates, the extension and the fold are written
+in place.
+
 Training runs ``forward`` with ``deterministic=False`` (dropout after the
 attention and the FFN of every block, as flax's ``nn.Dropout``: keep with
 probability 1 - rate, scale the kept values by 1 / (1 - rate)) and with
@@ -382,5 +390,149 @@ class RankingModel(nn.Module):
                 x = blk.ns_call(x, None, None, None)
             else:
                 x = blk.ns_call(x, *entry)
+        x = self.final_norm(x)
+        return self._apply_heads(x[:, -1])
+
+    # -- cross-request Δ-append session cache ------------------------------
+    #
+    # Session state: a refresh cache (``pad_s_cache(encode_s(...))``: per-layer
+    # k/v/valid with spare invalid rows) plus per-layer extension buffers
+    # ext_k/ext_v [n_layers, 1, SLACK, H, Dh] with one shared count of filled
+    # slots. Under the causal mask appended tokens cannot change earlier
+    # positions' K/V, so an append is exact with respect to the forward whose
+    # per-layer pyramid windows are frozen at the refresh point; without
+    # pruning it equals the full forward. The serving engine re-anchors with a
+    # fresh ``encode_s`` periodically.
+
+    def embed_sequence_items(self, sf: str, ids: torch.Tensor) -> torch.Tensor:
+        """Token vectors of items of one behavior sequence, ids [..., n] ->
+        [..., n, d]: the shared item table and projection, per item and
+        position-independent, so an append-only cache is exact. ``sf`` names
+        the sequence; every sequence shares the table."""
+        tok = self.tokenizer
+        return dense(tok.seq_proj, tok._lookup(tok.item_embed, ids),
+                     compute_dtype(self.config))
+
+    def extend_s_cache(
+        self,
+        cache: List[CacheEntry],
+        ext_k: torch.Tensor,  # [n_layers, 1, SLACK, H, Dh]
+        ext_v: torch.Tensor,
+        count: int,  # filled extension slots
+        x_new: torch.Tensor,  # [1, Db, d] token vectors of the appended items
+        new_valid: torch.Tensor,  # [1, Db] bool on the host, valid first
+    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """One Δ-append trunk step: each layer's K/V of the new tokens is
+        written into ext_k/ext_v at [count : count + Db] IN PLACE, and the
+        new count (count + the valid new tokens, counted on the host, so the
+        append needs no device-to-host copy) is returned with the buffers.
+
+        Per layer, the new tokens attend over [refresh K/V ; extension ;
+        new] at q_offset SLACK + refresh length, and only their layer output
+        feeds the next layer. The step stops at a ``None`` cache entry (the
+        refresh trunk ended there) and skips q/FFN on the trunk's last layer,
+        whose output nothing reads."""
+        slack = ext_k.shape[2]
+        dev = x_new.device
+        ext_valid = (torch.arange(slack, device=dev) < count)[None]  # [1, SLACK]
+        n_new = int(new_valid.sum())
+        new_valid = new_valid.to(dev)
+        db = x_new.shape[1]
+        x = x_new
+        n_layers = len(self.blocks)
+        for i, (blk, entry) in enumerate(zip(self.blocks, cache)):
+            if entry is None:
+                break
+            hx = blk.attn_norm(x)
+            k_n = blk._heads(blk._dense(blk.k_s, hx))
+            v_n = blk._heads(blk._dense(blk.v_s, hx))
+            last = i + 1 >= n_layers or cache[i + 1] is None
+            if not last:
+                k0, v0, sv0 = entry
+                # the concatenation reads the extension before this step
+                # writes into it
+                k = torch.cat([k0.to(k_n.dtype), ext_k[i].to(k_n.dtype), k_n], 1)
+                v = torch.cat([v0.to(v_n.dtype), ext_v[i].to(v_n.dtype), v_n], 1)
+                kv_valid = torch.cat([sv0, ext_valid, new_valid], 1)
+            ext_k[i, :, count:count + db] = k_n.to(ext_k.dtype)
+            ext_v[i, :, count:count + db] = v_n.to(ext_v.dtype)
+            if last:
+                break
+            q = blk._heads(blk._dense(blk.q_s, hx))
+            attn = blk._attend(q, k, v, kv_valid, slack + k0.shape[1])
+            x = x + blk._o_proj(attn)
+            x = x + blk._ffn_s(blk.ffn_norm(x))
+        return ext_k, ext_v, count + n_new
+
+    def pad_s_cache(self, cache: List[CacheEntry], pad_rows: int) -> List[CacheEntry]:
+        """Append ``pad_rows`` invalid zero rows to every layer's cached K/V:
+        the space ``compact_s_cache`` later fills, so a session cache keeps
+        one shape from refresh to refresh."""
+        out: List[CacheEntry] = []
+        for entry in cache:
+            if entry is None:
+                out.append(None)
+                continue
+            k0, v0, sv0 = entry
+            zk = k0.new_zeros((k0.shape[0], pad_rows) + k0.shape[2:])
+            out.append((
+                torch.cat([k0, zk], 1),
+                torch.cat([v0, zk.to(v0.dtype)], 1),
+                torch.cat([sv0, sv0.new_zeros((sv0.shape[0], pad_rows))], 1),
+            ))
+        return out
+
+    def compact_s_cache(
+        self,
+        cache: List[CacheEntry],
+        ext_k: torch.Tensor,
+        ext_v: torch.Tensor,
+        count: int,
+        level: int,
+        pad_rows: int,
+    ) -> List[CacheEntry]:
+        """Fold the extension buffers into a padded cache (``pad_s_cache``)
+        without any trunk recompute: per layer the SLACK extension rows,
+        valid below ``count``, are written IN PLACE into the spare rows at
+        base length + ``level`` · SLACK. K/V entries are frozen, so this is an
+        exact identity on scoring."""
+        slack = ext_k.shape[2]
+        out: List[CacheEntry] = []
+        for i, entry in enumerate(cache):
+            if entry is None:
+                out.append(None)
+                continue
+            k0, v0, sv0 = entry
+            off = k0.shape[1] - pad_rows + level * slack
+            k0[:, off:off + slack] = ext_k[i].to(k0.dtype)
+            v0[:, off:off + slack] = ext_v[i].to(v0.dtype)
+            sv0[:, off:off + slack] = torch.arange(slack, device=sv0.device) < count
+            out.append((k0, v0, sv0))
+        return out
+
+    def score_with_cache_ext(
+        self,
+        cache: List[CacheEntry],
+        ext_k: torch.Tensor,
+        ext_v: torch.Tensor,
+        count: int,
+        non_seq: Dict[str, torch.Tensor],
+    ) -> Dict[str, torch.Tensor]:
+        """``score_with_cache`` over refresh cache and extension: each
+        layer's S keys are [refresh K/V ; extension[:count]]. A layer with no
+        cache entry has no S stream, and its extension rows are never
+        attended."""
+        x = self.tokenizer.ns_tokens(non_seq)
+        slack = ext_k.shape[2]
+        ext_valid = (torch.arange(slack, device=x.device) < count)[None]
+        for i, (blk, entry) in enumerate(zip(self.blocks, cache)):
+            if entry is None:
+                x = blk.ns_call(x, None, None, None)
+                continue
+            k0, v0, sv0 = entry
+            k_s = torch.cat([k0, ext_k[i].to(k0.dtype)], 1)
+            v_s = torch.cat([v0, ext_v[i].to(v0.dtype)], 1)
+            sv = torch.cat([sv0, ext_valid.expand(sv0.shape[0], slack)], 1)
+            x = blk.ns_call(x, k_s, v_s, sv)
         x = self.final_norm(x)
         return self._apply_heads(x[:, -1])

@@ -1,14 +1,13 @@
 """Band-masked attention kernels, their autograd Functions and dispatchers.
 
 The counterpart of the JAX package's ``ops/pallas/flash_attention.py``.
-Each of its forward Pallas kernels, and each backward one a training step
-reaches, has here
+Each of its Pallas kernels, forward and backward, has here
 
 - a wrapper named after its CUDA entry point (forward in
   ``csrc/band_attention.cu``: ``band_attn_blocked_fwd``, ``band_attn_bh_fwd``,
   ``band_attn_mh_fwd``, ``band_attn_segkv_fwd``, returning ``(out, lse)``;
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
-  ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``,
+  ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
   ``band_attn_segkv_bwd``, returning the input gradients);
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
@@ -18,8 +17,6 @@ The JAX package's public names (``flash_band_attention`` ...) return ``out``
 and carry a gradient through a ``torch.autograd.Function``: its forward
 runs the forward wrapper and saves q, k, v, bias, out and lse; its backward
 forms delta = rowsum(out * dO) in float32 and runs the backward wrapper(s).
-``fused_mh_band_attention`` (B3) has no backward kernel yet: on CUDA it
-raises when a gradient is needed.
 
 A wrapper given CPU tensors computes the plain version; given CUDA tensors
 it launches the kernel or raises. A forward wrapper returns no gradient on
@@ -52,6 +49,7 @@ LAUNCHES = {
     "band_attn_blocked_bwd_dq": 0,
     "band_attn_blocked_bwd_dkv": 0,
     "band_attn_bh_bwd": 0,
+    "band_attn_mh_bwd": 0,
     "band_attn_segkv_bwd": 0,
 }
 
@@ -65,6 +63,7 @@ _SIGNATURES = {
     "band_attn_blocked_bwd_dq": [_P] * 8 + [_I] * 6 + _TAIL,
     "band_attn_blocked_bwd_dkv": [_P] * 9 + [_I] * 6 + _TAIL,
     "band_attn_bh_bwd": [_P] * 10 + [_I] * 6 + _TAIL,
+    "band_attn_mh_bwd": [_P] * 10 + [_I] * 7 + _TAIL,
     "band_attn_segkv_bwd": [_P] * 14 + [_I] * 8 + _TAIL,
 }
 # the csrc/<stem>.cu that holds each entry point
@@ -186,6 +185,16 @@ def band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset, causal, h):
         kv_bias[:, None], sm_scale, q_offset, causal,
     )
     return _heads_last(out), lse
+
+
+def band_attn_mh_bwd_plain(q, k, v, kv_bias, do, lse, delta, sm_scale, q_offset,
+                           causal, h):
+    """Model layout, lse and delta [B, H, Lq] -> (dq, dk, dv)."""
+    return tuple(_heads_last(g) for g in _band_attention_bwd_plain(
+        _heads_first(q, h), _heads_first(k, h), _heads_first(v, h),
+        kv_bias[:, None], _heads_first(do, h), lse, delta, sm_scale, q_offset,
+        causal,
+    ))
 
 
 def _joined(s_bias, k, v, kns, vns):
@@ -390,14 +399,29 @@ def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
     if _check(name, (q, k, v), (kv_bias,), dh):
         return band_attn_mh_fwd_plain(q, k, v, kv_bias, sm_scale, q_offset,
                                       causal, h)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            f"{name}: its backward (B3b, _fmh_bwd_kernel) is not ported")
+    _forward_only(name, "fused_mh_band_attention", (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return out, lse
+
+
+def band_attn_mh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
+                     q_offset: int, causal: bool = True, h: int = 1):
+    """B3b: (dq, dk, dv) of the model-layout kernel. Forward inputs as
+    ``band_attn_mh_fwd``, do [B, Lq, H·Dh] in q's dtype, lse and delta
+    [B, H, Lq] float32. One call runs the dq and the dkv pass."""
+    name = "band_attn_mh_bwd"
+    b, lq, lkv, dh = _mh_shapes(name, q, k, v, kv_bias, h)
+    _grad_shapes(name, q, do, lse, delta, (b, h, lq))
+    if _check(name, (q, k, v, do), (kv_bias, lse, delta), dh):
+        return band_attn_mh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
+                                      sm_scale, q_offset, causal, h)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
+            (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
+    return dq, dk, dv
 
 
 def _seg_shapes(name, q, k, v, kns, vns, s_bias, h):
@@ -501,6 +525,25 @@ class _WholeTileAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class _ModelLayoutAttention(torch.autograd.Function):
+    """fused_mh_band_attention: B3f forward, B3b backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, sm_scale, q_offset, causal, h):
+        out, lse = band_attn_mh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal, h)
+        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        ctx.args = (sm_scale, q_offset, causal, h)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_bias, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = band_attn_mh_bwd(q, k, v, kv_bias, do, lse,
+                                      _delta(out, do, ctx.args[-1]), *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 class _SegmentedAttention(torch.autograd.Function):
     """fused_mhseg_band_attention: B1f forward, B1b backward."""
 
@@ -531,7 +574,8 @@ def fused_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True):
 
 def fused_mh_band_attention(q, k, v, kv_bias, sm_scale, q_offset, causal=True,
                             h=1):
-    return band_attn_mh_fwd(q, k, v, kv_bias, sm_scale, q_offset, causal, h)[0]
+    return _ModelLayoutAttention.apply(q, k, v, kv_bias, sm_scale, q_offset,
+                                       causal, h)
 
 
 def fused_mhseg_band_attention(q, k, v, kns, vns, s_bias, sm_scale, q_offset,

@@ -350,6 +350,57 @@ def test_segkv_backward_matches_fmhseg_kernel_vjp(case):
     _close_grads(t_grads, j_grads, ("dq", "dk", "dv", "dkns", "dvns"))
 
 
+BWD_MH_CASES = [
+    # (b, lq, lkv, h, dh, pad, full_pad_row): Lq not a multiple of 16, a
+    # positive q_offset, padded keys, one fully padded row
+    (2, 27, 61, 2, 128, 7, False),
+    (3, 21, 40, 1, 64, 4, True),
+    (1, 16, 16, 2, 32, 0, False),
+]
+
+
+@pytest.mark.parametrize("case", BWD_MH_CASES)
+def test_mh_backward_matches_fmh_kernel_vjp(case):
+    """B3b against _fmh_bwd_kernel (group 1), float32 at 1e-5."""
+    b, lq, lkv, h, dh, pad, full = case
+    rng = np.random.default_rng(11)
+    hd = h * dh
+    args = (_normal(rng, b, lq, hd), _normal(rng, b, lkv, hd), _normal(rng, b, lkv, hd))
+    do = _normal(rng, b, lq, hd)
+    bias = _bias(rng, b, lkv, pad, full)
+    scale, off = 1.0 / dh ** 0.5, lkv - lq
+    j_out, j_grads = _vjp(lambda *a: jfa.fused_mh_band_attention(
+        *a, jnp.asarray(bias), scale, off, True, h, 1), args, do)
+    bias_t = torch.from_numpy(bias)
+    t_out, t_grads = _torch_grads(lambda *a: tfa.fused_mh_band_attention(
+        *a, bias_t, scale, off, True, h), args, do)
+    _close(t_out.detach(), j_out)
+    for t, j, name in zip(t_grads, j_grads, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=name,
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_mh_autograd_on_cpu_takes_the_plain_backward_and_counts_no_launch():
+    """fused_mh_band_attention on CPU tensors that need a gradient: its
+    backward is band_attn_mh_bwd_plain on the forward's lse and delta, and
+    no kernel launch is counted."""
+    rng = np.random.default_rng(12)
+    b, lq, lkv, h, dh = 2, 12, 20, 2, 16
+    q, k, v, do = (torch.from_numpy(_normal(rng, b, l, h * dh))
+                   for l in (lq, lkv, lkv, lq))
+    bias = torch.from_numpy(_bias(rng, b, lkv, 3))
+    scale, off = 1.0 / dh ** 0.5, lkv - lq
+    tfa.reset_launch_counts()
+    got = _autograd_of_plain_fwd(
+        lambda q, k, v: tfa.fused_mh_band_attention(q, k, v, bias, scale, off, True, h),
+        (q, k, v), do)
+    out, lse = tfa.band_attn_mh_fwd_plain(q, k, v, bias, scale, off, True, h)
+    want = tfa.band_attn_mh_bwd_plain(q, k, v, bias, do, lse, tfa._delta(out, do, h),
+                                      scale, off, True, h)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(c == 0 for c in tfa.LAUNCHES.values())
+
+
 def _autograd_of_plain_fwd(fwd, args, do):
     ts = [a.clone().requires_grad_(True) for a in args]
     return torch.autograd.grad(fwd(*ts), ts, do)
@@ -398,6 +449,17 @@ def test_plain_backwards_match_autograd_of_plain_forwards(causal):
     for a, c in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5, rtol=1e-5)
 
+    k, v = t(b, ls, h * dh), t(b, ls, h * dh)
+    off = ls - lq
+    out, lse = tfa.band_attn_mh_fwd_plain(q, k, v, s_bias, scale, off, causal, h)
+    ref = _autograd_of_plain_fwd(
+        lambda *a: tfa.band_attn_mh_fwd_plain(*a, s_bias, scale, off, causal, h)[0],
+        (q, k, v), do)
+    got = tfa.band_attn_mh_bwd_plain(q, k, v, s_bias, do, lse, tfa._delta(out, do, h),
+                                     scale, off, causal, h)
+    for a, c in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), atol=1e-5, rtol=1e-5)
+
 
 def test_every_preset_head_width_has_a_kernel():
     """Dh of every preset (ranking_base 384/4 = 96 included) is instantiated,
@@ -428,3 +490,7 @@ def test_backward_wrappers_reject_bad_statistics():
     with pytest.raises(TypeError):
         tfa.band_attn_blocked_bwd_dkv(q, k, k, bias, q.bfloat16(), torch.zeros(2, 8),
                                       torch.zeros(2, 8), 0.1, 4)
+    # model layout: statistics are [B, H, Lq]
+    with pytest.raises(ValueError):
+        tfa.band_attn_mh_bwd(q, k, k, bias, q, torch.zeros(2, 8), torch.zeros(2, 8),
+                             0.1, 4, True, 2)

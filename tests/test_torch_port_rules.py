@@ -127,6 +127,8 @@ def test_cuda_entry_points_match_their_bindings():
             kind = "pointer" if "*" in c_type else c_type
             assert {"pointer": tfa._P, "int": tfa._I, "float": tfa._F}[kind] is t, (name, p)
     assert set(tfa._SIGNATURES) == set(tfa.LAUNCHES) == set(tfa.LIBRARY)
+    # one entry point per Pallas kernel: four forward, five backward (B3b too)
+    assert len(tfa._SIGNATURES) == 9 and tfa.LIBRARY["band_attn_mh_bwd"] == "band_attention_bwd"
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(tfa.LIBRARY.values())
 
 

@@ -115,9 +115,10 @@ def test_score_request_without_kv_cache_matches():
 
 
 def test_stats_and_warmup_match():
-    """The same calls give the same counts; the port's warmup runs the two
-    request paths (the JAX engine's also warms its session cache, which the
-    port has not taken over yet)."""
+    """The same calls give the same counts, warmup included: both engines'
+    warmups run the batch forward, the KV-cached request and the same
+    session ladder (an append per Δ bucket, then one fold and a re-anchor),
+    and leave no session behind."""
     cfg = _tiny_cfg()
     jax_engine, port = _engines(cfg, jax_params(cfg, make_batch(cfg, seq_len=MAX_SEQ_LEN)))
     user, seqs, cands = _request(4)
@@ -130,8 +131,10 @@ def test_stats_and_warmup_match():
     for key in ("total", "success", "failure", "success_rate"):
         assert t[key] == j[key]
     assert t["total"] == 3 and t["latency_ms_p99"] >= t["latency_ms_p50"] > 0
-    port.warmup(n_candidates=3)
-    assert port.stats()["total"] == 5
+    for engine in (jax_engine, port):
+        engine.warmup(n_candidates=3)
+    assert port.stats()["total"] == jax_engine.stats()["total"] > 5
+    assert not port._sessions and not port._pending
 
 
 def test_failed_request_is_recorded(engines):
