@@ -9,9 +9,11 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the band-attention kernels from csrc/ with nvcc (sm_90a), one
    nvcc per source, all at once;
 3. hold each of the four forward kernels against its plain PyTorch version
-   at the serving shapes (the bh kernel also at Dh 96, ranking_base's head
-   width, and the mh kernel first at the S-trunk gradient's shapes), in bf16
-   and f32, and time kernel, plain version and
+   at the serving shapes (the blocked kernel also at Dh 64 and 96, the bh
+   kernel at Dh 96, ranking_base's head width, and the mh kernel first at
+   the S-trunk gradient's shapes), in bf16 and f32 (the bf16 blocked and mh
+   calls run the tensor-core kernel, the rest the CUDA-core one), and time
+   kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
    with CUDA events, beside the kernel's bound; then the same for the five
    backward kernels at the training shapes (B3b at the S-trunk gradient's
@@ -23,8 +25,9 @@ Phases, in order; any failure raises and exits non-zero:
    (p50 and p99, with the count beside them). Each checks the KV-cache
    invariant (``score_request`` against the full forward per candidate, in
    bf16 and in float32), the kernels against the plain attention path end
-   to end (float32), and that each kernel's launch count moved exactly as
-   its phase predicts;
+   to end (bf16 and float32: ``score_request`` and ``batch_inference`` of an
+   engine built with ``use_flash_attention=False`` on the same weights), and
+   that each kernel's launch count moved exactly as its phase predicts;
 5. train at bench.py's OneTrans-S widths (``RankingTrainer``, rowwise sparse
    adagrad, rmsprop with momentum, bf16, dropout 0, random weights from a
    seed): TA (bench.py's exact config), TB (400 items per sequence, the
@@ -106,6 +109,14 @@ KERNELS = [
         # phase B batch_inference layer 0 (B=128, H=2), score_request layer 0
         dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
         dict(b=2, h=1, lq=595, ls=1202, n=0, dh=128),
+        # the other widths that reach it (kv > 1024): Dh 64 (4 heads at
+        # d 256) and ranking_base's Dh 96
+        dict(b=512, h=1, lq=607, ls=1214, n=0, dh=64),
+        dict(b=512, h=1, lq=607, ls=1214, n=0, dh=96),
+        # and the rest of _KERNEL_DH, which the bf16 kernel tiles otherwise:
+        # Dh 32 as one 32-column chunk (64-byte swizzle), Dh 16, 48, 80
+        # and 112 as 16-column chunks (32-byte swizzle, m64n16k16 PV)
+        *(dict(b=64, h=1, lq=607, ls=1214, n=0, dh=dh) for dh in (16, 32, 48, 80, 112)),
     ]),
     ("band_attn_bh_fwd", "recommend_tpu/ops/pallas/flash_attention.py:393", [
         # phase C batch_inference (B=128, H=4) and score_request, layer 0
@@ -130,6 +141,13 @@ KERNELS = [
         dict(b=128, h=2, lq=103, ls=194, n=12, dh=128),
     ]),
 ]
+# the source of each forward kernel's bf16 body, for the kernels' JSON line
+# (every backward's is csrc/band_attention_bwd.cu)
+CSRC = "recommend_tpu_torch/csrc/"
+SOURCE = {"band_attn_blocked_fwd": CSRC + "band_attention_fwd_sm90.cuh",
+          "band_attn_mh_fwd": CSRC + "band_attention_fwd_sm90.cuh",
+          "band_attn_bh_fwd": CSRC + "band_attention.cu",
+          "band_attn_segkv_fwd": CSRC + "band_attention.cu"}
 
 
 def log(msg: str) -> None:
@@ -270,7 +288,7 @@ def check_kernels(fa, kernels):
                 if i == 0 and dtype == torch.bfloat16:
                     entries[name] = {
                         "name": name, "route": "cuda",
-                        "source": "recommend_tpu_torch/csrc/band_attention.cu",
+                        "source": SOURCE[name],
                         "replaces": replaces, "launches": 0,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -424,7 +442,7 @@ def check_backward_kernels(fa, kernels):
                 if i == 0 and dtype == torch.bfloat16:
                     entries[name] = {
                         "name": name, "route": "cuda",
-                        "source": "recommend_tpu_torch/csrc/band_attention_bwd.cu",
+                        "source": CSRC + "band_attention_bwd.cu",
                         "replaces": replaces, "launches": 0, "max_abs_err": max(
                             (g.float() - r.float()).abs().max().item()
                             for g, r in zip(got, ref)),
@@ -498,8 +516,11 @@ def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
     cfg = serving_config(heads)
     params = init_params(cfg, seed=SEED, device="cuda")
     engine = RankingInferenceEngine(cfg, params, max_seq_len=max_seq_len, device="cuda")
-    # float32 twins on the same weights, for the checks that bf16 rounding
-    # would blur: with and without the kernels
+    # the plain attention path on the same weights, in bf16, and float32
+    # twins with and without the kernels, for the checks that bf16 rounding
+    # would blur
+    p16 = RankingInferenceEngine(dataclasses.replace(cfg, use_flash_attention=False),
+                                 params, max_seq_len=max_seq_len, device="cuda")
     f32 = dataclasses.replace(cfg, use_mixed_precision=False)
     e32 = RankingInferenceEngine(f32, params, max_seq_len=max_seq_len, device="cuda")
     p32 = RankingInferenceEngine(dataclasses.replace(f32, use_flash_attention=False),
@@ -548,6 +569,9 @@ def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
     kv_err = max_diff(outs[0], batch, tasks)
     singles = [engine.single_inference(*rows[i]) for i in range(4)]
     single_err = max_diff(outs[0][:4], singles, tasks)
+    # bf16 kernels against the bf16 plain attention path, both calls
+    path16_err = max(max_diff(outs[0], p16.score_request(user, seqs, cands), tasks),
+                     max_diff(batch, p16.batch_inference(rows), tasks))
     # the same in float32, and the kernels against the plain attention path
     s32, b32 = e32.score_request(user, seqs, cands), e32.batch_inference(rows)
     kv32_err = max_diff(s32, b32, tasks)
@@ -555,6 +579,7 @@ def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
                    max_diff(b32, p32.batch_inference(rows), tasks))
     assert kv_err <= BF16_BATCH_TOL, f"{label}: score_request vs batch {kv_err}"
     assert single_err <= BF16_SINGLE_TOL, f"{label}: score_request vs single {single_err}"
+    assert path16_err <= BF16_BATCH_TOL, f"{label}: bf16 kernels vs plain path {path16_err}"
     assert kv32_err <= F32_PATH_TOL, f"{label}: f32 score_request vs batch {kv32_err}"
     assert path_err <= F32_PATH_TOL, f"{label}: f32 kernels vs plain path {path_err}"
     p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
@@ -564,9 +589,10 @@ def serve_phase(label, heads, max_seq_len, history, per_score, per_batch, fa,
         f"p99 {p99:.3f} ms, batch_inference({N_CANDIDATES}) n={len(batch_lat)} p50 "
         f"{b50:.3f} ms | "
         f"launches score {got_s} batch {got_b} | bf16 cached-vs-full {kv_err:.2e}, "
-        f"vs single {single_err:.2e}; f32 cached-vs-full {kv32_err:.2e}, "
+        f"vs single {single_err:.2e}, kernels-vs-plain {path16_err:.2e}; f32 "
+        f"cached-vs-full {kv32_err:.2e}, "
         f"kernels-vs-plain {path_err:.2e} | setup {setup_s:.1f} s [{CARD}]")
-    del engine, e32, p32
+    del engine, p16, e32, p32
     torch.cuda.empty_cache()
 
 
@@ -719,9 +745,11 @@ def s_trunk_grads(model, names, seqs, sv, noise):
     return [g for g in grads if g is not None]
 
 
-def s_trunk_phase(fa, totals):
-    import dataclasses
-
+def s_trunk_inputs(cfg, items: int, batch_size: int):
+    """Phase SG's inputs at ``cfg``: (``model_for``, which builds a
+    ``RankingModel`` of a config on the seeded weights with the dense
+    parameters requiring grad, their names, one batch's sequences and
+    validity on the card, the masked-loss noise per cached layer)."""
     import numpy as np
     import torch
 
@@ -730,9 +758,6 @@ def s_trunk_phase(fa, totals):
     from recommend_tpu_torch.data.synthetic import make_ranking_data
     from recommend_tpu_torch.models.ranking import RankingModel
 
-    t0 = time.perf_counter()
-    items, batch_size = SG_ITEMS, SG_BATCH
-    cfg = training_config(2, batch_size)  # TA's widths
     data = make_ranking_data(cfg, num_samples=batch_size, max_seq_per_feature=items,
                              seed=SEED)
     batch = next(ranking_batches(data, cfg, batch_size=batch_size, seed=SEED))
@@ -750,12 +775,25 @@ def s_trunk_phase(fa, totals):
             p.requires_grad_(name not in tables)
         return model
 
-    model = model_for(cfg)
     with torch.no_grad():
-        shapes = [tuple(k.shape) for k, _, _ in model.encode_s(seqs, sv)]
+        shapes = [tuple(k.shape) for k, _, _ in model_for(cfg).encode_s(seqs, sv)]
     rng = np.random.default_rng(SEED)
     noise = [tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
                    for _ in range(2)) for s in shapes]
+    return model_for, names, seqs, sv, noise
+
+
+def s_trunk_phase(fa, totals):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    items, batch_size = SG_ITEMS, SG_BATCH
+    cfg = training_config(2, batch_size)  # TA's widths
+    model_for, names, seqs, sv, noise = s_trunk_inputs(cfg, items, batch_size)
+    model = model_for(cfg)
     per_pass = len(s_trunk_kernel_shapes(cfg, items, batch_size))
     s_trunk_grads(model, names, seqs, sv, noise)  # warm-up
     torch.cuda.synchronize()
@@ -789,7 +827,7 @@ def s_trunk_phase(fa, totals):
         f"ms p99 {np.percentile(times, 99):.3f} ms | launches {got} | f32 kernels-vs-"
         f"plain grad norm {norms[0]:.6g} vs {norms[1]:.6g}, rel {norm_err:.2e} | setup "
         f"{setup_s:.1f} s [{CARD}]")
-    del params, noise
+    del model_for, noise
     torch.cuda.empty_cache()
 
 
@@ -915,6 +953,22 @@ def session_phase(fa, totals):
         f"| setup {setup_s:.1f} s [{CARD}]")
 
 
+def ptxas_label(line: str) -> str:
+    """``name<type, template ints>`` of the kernel whose mangled name a
+    ptxas 'Compiling entry function' line gives, e.g.
+    band_attn_kernel<bf16, 128> or band_attn_fwd_sm90_kernel<128>."""
+    import re
+
+    m = re.search(r"(band_attn_\w*?kernel)I(\w*?)EE", line)
+    if not m:
+        return line.strip()
+    targs = m.group(2) + "E"  # e.g. fLi128E, 13__nv_bfloat16Li96E, Li128E
+    args = re.findall(r"Li(\d+)E", targs)
+    if not targs.startswith("Li"):
+        args.insert(0, "bf16" if "bfloat16" in targs else "f32")
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def main() -> int:
     global CARD
     import torch
@@ -937,9 +991,12 @@ def main() -> int:
     libs = _build.build_all()
     log(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t:.1f} s")
     for lib in libs:
+        kernel = ""
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {lib.stem.split('-')[0]}: " + line.strip())
+            if "Compiling entry function" in line:
+                kernel = ptxas_label(line)
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {lib.stem.split('-')[0]} {kernel}: " + line.strip())
 
     sg = s_trunk_kernel_shapes(training_config(2, SG_BATCH), SG_ITEMS, SG_BATCH)
     log(f"phase SG's model-layout shapes from pyramid_keep_lengths: {sg}")

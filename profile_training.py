@@ -4,6 +4,8 @@ training phase.
 
     python3 profile_training.py     # from the repository root; one CUDA card
 
+    python3 profile_training.py TB SG   # only the phases named
+
 For each of chip_smoke's training phases (TA, TB, TC: same configs, weights
 and batches) it warms the trainer, times train steps unprofiled (median on
 the host clock, each step ending in a synchronize), then traces a few with
@@ -11,7 +13,8 @@ the host clock, each step ending in a synchronize), then traces a few with
 profiled wall time, device busy time (the sum of kernel times in the trace),
 the card's idle share against the unprofiled wall time, the number of
 kernels launched, the band-attention kernels' device time, and the kernels
-that took most device time.
+that took most device time. Then the same for one pass of chip_smoke's
+phase SG (the S-trunk gradient at TA's widths and traffic).
 """
 
 from __future__ import annotations
@@ -53,6 +56,17 @@ def main(phases) -> int:
         measure(label, "train step", step, N_STEPS)
         del trainer, state, batches
         torch.cuda.empty_cache()
+    if not phases or "SG" in phases:
+        cfg = chip_smoke.training_config(2, chip_smoke.SG_BATCH)
+        model_for, names, seqs, sv, noise = chip_smoke.s_trunk_inputs(
+            cfg, chip_smoke.SG_ITEMS, chip_smoke.SG_BATCH)
+        model = model_for(cfg)
+
+        def grad_pass():
+            chip_smoke.s_trunk_grads(model, names, seqs, sv, noise)
+
+        grad_pass()
+        measure("SG", "S-trunk backward", grad_pass, N_STEPS)
     return 0
 
 

@@ -25,19 +25,21 @@
 // all masked, and there the plain reference (a uniform softmax over the real
 // keys) is what this kernel computes.
 //
-// What bounds it on the H100: at the serving shapes (Dh 64/128, a few hundred
-// to ~1200 keys) the work is the two matrix products, 4 * Dh flops per
-// (row, key) pair inside the band, against roughly (Lq + 2 Lkv) * Dh elements
-// moved, so the kernel should be bound by operations. This first version
-// does them as float32 FMAs on the CUDA cores (67 TF/s peak), not on the
-// tensor cores (989 TF/s bf16), so it cannot approach its bound; warpgroup
-// MMA (wgmma) with TMA-fed shared-memory tiles is the next step.
-// What the design does: one block per (batch, head, 64-row query tile); the
+// Two bodies serve them. The bfloat16 calls of B2f and B3f run on the
+// tensor cores: band_attention_fwd_sm90.cuh (wgmma for both products,
+// TMA-fed tiles in a K/V ring; its note says what bounds them and what it
+// does). Everything else runs the CUDA-core body below: every float32 call
+// (the tensor cores have no full-float32 product, and TF32 would not hold
+// the float32 checks at 1e-4) and B1f and B4f in both types.
+// The CUDA-core body: one block per (batch, head, 64-row query tile); the
 // block loops over 64-key tiles only up to the band edge of its last row
 // (tiles wholly above the band are skipped, as _run_block does), keeps the
 // running max/sum/accumulator of the online softmax in registers (float32),
-// and stages Q, K then V, and P in shared memory, so the [Lq, Lkv] logits
-// never reach device memory.
+// and stages Q, K then V, and P in shared memory as float32, so the
+// [Lq, Lkv] logits never reach device memory. Its products are float32 FMAs
+// (67 TF/s peak), so it stays far from its bound: at the serving shapes the
+// work is 4 * Dh flops per in-band (row, key) pair against roughly
+// (Lq + 2 Lkv) * Dh elements moved, bound by operations on the tensor cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -45,6 +47,7 @@
 #include <stdint.h>
 
 #include "band_attention_common.cuh"
+#include "band_attention_fwd_sm90.cuh"
 
 namespace {
 
@@ -294,8 +297,12 @@ int band_attn_blocked_fwd(const void* q, const void* k, const void* v,
                           const float* bias, void* out, float* lse, int bh,
                           int lq, int lkv, int dh, int q_offset, int causal,
                           float sm_scale, int dtype, void* stream) {
+  if (dtype == 1)  // bf16: the tensor-core kernel, [BH, L, Dh] as H = 1
+    return sm90::fwd_bf16(q, k, v, bias, out, lse, bh, 1, lq, lkv, dh, q_offset, causal,
+                          sm_scale, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = bh_args(q, k, v, bias, out, lse, lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, stream);
+  return launch(a, bh, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
 }
 
 // B4f: whole-tile band attention over [BH, L, Dh]
@@ -312,8 +319,12 @@ int band_attn_mh_fwd(const void* q, const void* k, const void* v,
                      const float* bias, void* out, float* lse, int b, int h,
                      int lq, int lkv, int dh, int q_offset, int causal,
                      float sm_scale, int dtype, void* stream) {
+  if (dtype == 1)  // bf16: the tensor-core kernel
+    return sm90::fwd_bf16(q, k, v, bias, out, lse, b, h, lq, lkv, dh, q_offset, causal,
+                          sm_scale, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = mh_args(q, k, v, bias, out, lse, h, lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, b, dh, dtype, stream);
+  return launch(a, b, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
 }
 
 // B1f: model layout with the keys in two segments, S [B, Ls, H*Dh] with its

@@ -6,6 +6,9 @@ Each of its Pallas kernels, forward and backward, has here
 - a wrapper named after its CUDA entry point (forward in
   ``csrc/band_attention.cu``: ``band_attn_blocked_fwd``, ``band_attn_bh_fwd``,
   ``band_attn_mh_fwd``, ``band_attn_segkv_fwd``, returning ``(out, lse)``;
+  the bf16 calls of ``band_attn_blocked_fwd`` and ``band_attn_mh_fwd`` run
+  the tensor-core kernel of ``csrc/band_attention_fwd_sm90.cuh``, every
+  other forward call the CUDA-core kernel);
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
   ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
   ``band_attn_segkv_bwd``, returning the input gradients);
@@ -256,6 +259,23 @@ def _check(name: str, same, f32, dh: int) -> bool:
     return False
 
 
+_TMA_FORWARDS = ("band_attn_blocked_fwd", "band_attn_mh_fwd")
+
+
+def _check_tma_aligned(name: str, tensors) -> None:
+    """The bf16 calls of B2f and B3f, and only those, read and write their
+    tiles through TMA tensor maps, whose base addresses must be 16-byte
+    aligned (row strides, H·Dh·2 bytes, are multiples of 16 for every Dh in
+    ``_KERNEL_DH``). Other calls run the CUDA-core kernel, which needs no
+    alignment."""
+    if name not in _TMA_FORWARDS or tensors[0].dtype != torch.bfloat16:
+        return
+    bad = [i for i, t in enumerate(tensors) if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{name}: tensors {bad} of (q, k, v, out) are not 16-byte "
+                         f"aligned")
+
+
 def _forward_only(name: str, public: str, tensors) -> None:
     """A forward kernel writes into fresh tensors and records no graph: on
     CUDA, inputs that need a gradient go through the public name."""
@@ -301,6 +321,7 @@ def _bh_fwd(name, public, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
         return plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
     _forward_only(name, public, (q, k, v, kv_bias))
     out = torch.empty_like(q)
+    _check_tma_aligned(name, (q, k, v, out))
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (bh, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -401,6 +422,7 @@ def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
                                       causal, h)
     _forward_only(name, "fused_mh_band_attention", (q, k, v))
     out = torch.empty_like(q)
+    _check_tma_aligned(name, (q, k, v, out))
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)

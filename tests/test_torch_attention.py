@@ -477,6 +477,39 @@ def test_every_preset_head_width_has_a_kernel():
         assert t == j == ["fused_band_attention"], (j, t)
 
 
+def test_every_preset_head_width_meets_the_tma_row_stride():
+    """TMA needs 16-byte row strides: H·Dh·2 bytes in model layout and Dh·2
+    in the [B·H, L, Dh] layout, so every width in _KERNEL_DH must be a
+    multiple of 8 elements, and each preset's width must be one of them."""
+    from recommend_tpu_torch.config import get_config
+
+    assert all(d * 2 % 16 == 0 for d in tfa._KERNEL_DH)
+    for name in ("ranking_base", "ranking_small", "ranking_large"):
+        cfg = get_config(name)
+        dh = cfg.embed_dim // cfg.num_heads
+        assert dh in tfa._KERNEL_DH and cfg.num_heads * dh * 2 % 16 == 0, name
+
+
+def test_tma_alignment_check_rejects_an_unaligned_tensor():
+    q = torch.zeros(4, 8, 64, dtype=torch.bfloat16)
+    tfa._check_tma_aligned("band_attn_mh_fwd", (q, q[1:], q, q))
+    flat = torch.zeros(4 * 8 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 8, 64)  # 2 bytes past an aligned address
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._check_tma_aligned("band_attn_mh_fwd", (q, shifted, q, q))
+
+
+@pytest.mark.parametrize("name, dtype", [("band_attn_bh_fwd", torch.bfloat16),
+                                         ("band_attn_blocked_fwd", torch.float32),
+                                         ("band_attn_mh_fwd", torch.float32)])
+def test_tma_alignment_check_spares_calls_that_use_no_tma(name, dtype):
+    """B4f and every float32 call run the CUDA-core kernel, which reads no
+    tensor map, so an unaligned tensor passes there."""
+    flat = torch.zeros(4 * 8 * 64 + 1, dtype=dtype)
+    shifted = flat[1:].view(4, 8, 64)
+    tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted))
+
+
 def test_backward_wrappers_reject_bad_statistics():
     q = torch.zeros(2, 8, 32)
     k = torch.zeros(2, 12, 32)

@@ -6,7 +6,11 @@
 - the engine, the initializer and the trainer run on CUDA unless told
   otherwise, and raise without it;
 - each CUDA entry point takes exactly the arguments its ctypes binding
-  passes, and a build without nvcc raises.
+  passes, and a build without nvcc raises;
+- the bf16 calls of B2f and B3f, and only theirs, reach the tensor-core
+  kernel of ``band_attention_fwd_sm90.cuh``, at every head width the
+  kernels are instantiated for; their float32 calls stay on the CUDA-core
+  kernel.
 """
 
 import ast
@@ -140,3 +144,62 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.build("band_attention")
     path = _build.library_path("band_attention")
     assert path.name.startswith("libband_attention-") and path.suffix == ".so"
+
+
+def _entry_body(src: str, name: str) -> str:
+    """The body of the extern C entry point ``name`` in ``src``."""
+    extern = src[src.index('extern "C"'):]
+    start = extern.index("{", re.search(rf"int {name}\(", extern).end())
+    depth = 0
+    for i in range(start, len(extern)):
+        depth += {"{": 1, "}": -1}.get(extern[i], 0)
+        if depth == 0:
+            return extern[start:i + 1]
+    raise AssertionError(f"{name}: unbalanced body")
+
+
+def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
+    common = (_build.CSRC / "band_attention_common.cuh").read_text()
+    header = (_build.CSRC / "band_attention_fwd_sm90.cuh").read_text()
+    fwd = (_build.CSRC / "band_attention.cu").read_text()
+    # the header's switch over Dh expands the shared list, which is _KERNEL_DH
+    widths = re.search(r"#define BAND_ATTN_FOR_EACH_DH\(X\)(.*)", common).group(1)
+    assert tuple(int(d) for d in re.findall(r"X\((\d+)\)", widths)) == tfa._KERNEL_DH
+    dispatch = header[header.index("int fwd_bf16("):]
+    assert "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)" in dispatch
+    # one kernel shape: a 64-row consumer warpgroup and a producer warp
+    assert re.search(r"template <int DH>\s*__global__ void __launch_bounds__\(128 \+ 32, 2\)", header)
+    assert "wgmma.mma_async" in header and "cp.async.bulk.tensor" in header
+    # the forwards' source includes it; the backward's does not
+    assert '#include "band_attention_fwd_sm90.cuh"' in fwd
+    assert "band_attention_fwd_sm90" not in (_build.CSRC / "band_attention_bwd.cu").read_text()
+    # dtype 0 goes to band_attn_kernel<float, DH>, 1 to band_attn_kernel<bf16, DH>
+    launch = fwd[fwd.index("int launch(const Args& a"):]
+    assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, s);" in launch
+    assert "band_attn_kernel<T, DH><<<" in fwd
+    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd"):
+        body = _entry_body(fwd, name)
+        # bf16 returns from the tensor-core kernel before anything else runs;
+        # float32 goes through launch() (code 0) and nothing else does
+        bf16 = re.search(r"if \(dtype == 1\)[^;]*?return sm90::fwd_bf16\(", body)
+        assert bf16 and bf16.start() == body.index("if ("), name
+        rest = body[bf16.end():]
+        assert "if (dtype != 0) return (int)cudaErrorInvalidValue;" in rest, name
+        assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
+    for name in ("band_attn_bh_fwd", "band_attn_segkv_fwd"):
+        body = _entry_body(fwd, name)
+        assert "sm90" not in body and "return launch(a," in body, name
+
+
+def test_chip_smoke_holds_the_bf16_blocked_forward_at_every_head_width():
+    """The tensor-core kernel tiles each width of _KERNEL_DH its own way
+    (chunk width, swizzle, PV product), and B2f reaches any of them once
+    kv > 1024: the card check runs each at least once, at kv > 1024."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.KERNELS)["band_attn_blocked_fwd"]
+    assert {s["dh"] for s in shapes if s["ls"] > 1024} == set(tfa._KERNEL_DH)
+    label = chip_smoke.ptxas_label(
+        "ptxas info : Compiling entry function "
+        "'_ZN9band_attn4sm9025band_attn_fwd_sm90_kernelILi48EEEvN8CUtensorMapE' for 'sm_90a'")
+    assert label == "band_attn_fwd_sm90_kernel<48>"
