@@ -17,7 +17,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
    with CUDA events, beside the kernel's bound; then the same for the five
    backward kernels at the training shapes (B3b at the S-trunk gradient's
-   shapes), against their plain backward and SDPA's backward;
+   shapes), against their plain backward and SDPA's backward (the bf16
+   B1b and B3b calls run the tensor-core passes, also at small shapes that
+   reach each edge of their tiling);
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -34,15 +36,16 @@ Phases, in order; any failure raises and exits non-zero:
    blocked kernels at layer 0) and TC (4 heads, Dh 64), each a few warm-up
    steps and N_TRAIN timed steps on the host clock (p50, p99, n, examples/s,
    the losses). Each asserts a finite loss at every step, its launch counts
-   exactly, and, in float32 on one batch, that one step through the kernels
-   agrees with one step through the plain attention path (loss, dense
-   gradient norm, table updates);
+   exactly, and, on one batch, that one step through the kernels agrees
+   with one step through the plain attention path: in float32 (loss, dense
+   gradient norm, table updates) and in bf16 (loss, dense gradient norm);
 6. SG, the S-trunk gradient: at TA's widths and traffic (2 heads, Dh 128,
    116 items per sequence, batch 512, bf16), N_SG backward passes of a
    scalar of ``encode_s``'s cache through a ``RankingModel`` whose dense
    parameters require grad; asserts the model-layout kernels' launch counts
    (B3f and B3b once per pass in every layer keeping >= 64 S rows) and, in
-   float32, the gradient norm through the kernels against the plain path;
+   float32 and in bf16, the gradient norm through the kernels against the
+   plain path;
 7. S, the cross-request session cache at the JAX serving bench's config
    (examples/serving_bench.py: 4 heads, Dh 64, window 64, 48 items per
    sequence, 100 candidates, Δ-mix 1/2/4/8, the deployment profile with
@@ -100,6 +103,14 @@ F32_PATH_TOL = 1e-4
 F32_STEP_LOSS_TOL = 1e-6
 F32_STEP_NORM_TOL = 4e-6
 F32_STEP_TABLE_TOL = 1e-4
+# The same in bf16 (loss and dense gradient norm of phases TA/TB/TC, phase
+# SG's gradient norm), where the tensor-core backwards sum in another order
+# than the plain backward and every eager op rounds. Measured on the H100:
+# loss <= 2.3e-4, grad norm <= 4.8e-4, SG 8.6e-5; TC, which runs no
+# tensor-core backward, reads as much as TA, so most of the gap is the
+# bf16 rounding of the two paths' forwards. The limits leave about 4x.
+BF16_STEP_LOSS_TOL = 2e-3
+BF16_STEP_NORM_TOL = 2e-3
 CARD = ""
 
 # (name, JAX kernel body it replaces, shapes on the main path). The first
@@ -141,13 +152,18 @@ KERNELS = [
         dict(b=128, h=2, lq=103, ls=194, n=12, dh=128),
     ]),
 ]
-# the source of each forward kernel's bf16 body, for the kernels' JSON line
-# (every backward's is csrc/band_attention_bwd.cu)
+# the source of each kernel's bf16 body on the main path, for the kernels'
+# JSON line
 CSRC = "recommend_tpu_torch/csrc/"
 SOURCE = {"band_attn_blocked_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_mh_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_bh_fwd": CSRC + "band_attention.cu",
-          "band_attn_segkv_fwd": CSRC + "band_attention.cu"}
+          "band_attn_segkv_fwd": CSRC + "band_attention.cu",
+          "band_attn_segkv_bwd": CSRC + "band_attention_bwd_sm90.cuh",
+          "band_attn_mh_bwd": CSRC + "band_attention_bwd_sm90.cuh",
+          "band_attn_blocked_bwd_dq": CSRC + "band_attention_bwd.cu",
+          "band_attn_blocked_bwd_dkv": CSRC + "band_attention_bwd.cu",
+          "band_attn_bh_bwd": CSRC + "band_attention_bwd.cu"}
 
 
 def log(msg: str) -> None:
@@ -188,8 +204,9 @@ def make_inputs(shape, dtype, gen):
     running maximum moves from kv tile to kv tile. v ~ N(0, 0.25^2), so an
     output is about one value row (|out| up to ~1.2, where a bf16 ulp is
     7.8e-3). Keys are left-padded by up to a quarter of the S length per
-    row and, where there are several rows and no NS segment, the first
-    row's keys are all padded (fully masked query rows)."""
+    row and, where there are several rows and no NS segment (or the shape
+    sets ``padded_row``), the first row's S keys are all padded (fully
+    masked query rows when there is no NS segment)."""
     import torch
 
     b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
@@ -198,7 +215,7 @@ def make_inputs(shape, dtype, gen):
     rnd = lambda std, *s: (std * torch.randn(*s, generator=gen, device=dev)).to(dtype)
     pad = torch.randint(0, ls // 4 + 1, (b, 1), generator=gen, device=dev)
     valid = torch.arange(ls, device=dev)[None, :] >= pad
-    if n == 0 and b > 1:
+    if shape.get("padded_row", n == 0) and b > 1:
         valid[0] = False
     bias = torch.where(valid, 0.0, -1e9).float()
     t = dict(q=rnd(1.5, b, lq, hd), k=rnd(1.5, b, ls, hd), v=rnd(0.25, b, ls, hd),
@@ -212,20 +229,20 @@ def call(name, t, shape, fa, plain=False):
     h, dh = shape["h"], shape["dh"]
     total = shape["ls"] + shape["n"]
     off, scale = total - shape["lq"], 1.0 / dh ** 0.5
+    causal = shape.get("causal", True)
     fn = getattr(fa, name + ("_plain" if plain else ""))
     if name == "band_attn_segkv_fwd":
         return fn(t["q"], t["k"], t["v"], t["kns"], t["vns"], t["bias"], scale,
-                  off, True, h)
+                  off, causal, h)
     if name == "band_attn_mh_fwd":
-        return fn(t["q"], t["k"], t["v"], t["bias"], scale, off, True, h)
-    return fn(t["q"], t["k"], t["v"], t["bias"], scale, off, True)
+        return fn(t["q"], t["k"], t["v"], t["bias"], scale, off, causal, h)
+    return fn(t["q"], t["k"], t["v"], t["bias"], scale, off, causal)
 
 
-def library_call(t, shape):
-    """One F.scaled_dot_product_attention over the same inputs with the same
-    additive mask (keys joined, mask built outside the timed call)."""
+def library_inputs(t, shape):
+    """q, k, v as [B, H, L, Dh] views (keys joined) and the additive mask of
+    the kernels' function, for F.scaled_dot_product_attention."""
     import torch
-    import torch.nn.functional as F
 
     b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
     total = ls + n
@@ -234,13 +251,23 @@ def library_call(t, shape):
     if n:
         k, v = torch.cat([k, t["kns"]], 1), torch.cat([v, t["vns"]], 1)
         bias = torch.cat([bias, bias.new_zeros(b, n)], 1)
-    q_pos = total - lq + torch.arange(lq, device="cuda")
-    band = torch.where(torch.arange(total, device="cuda")[None, :] <= q_pos[:, None],
-                       0.0, -1e9)
-    mask = (bias[:, None, None, :] + band[None, None]).to(t["q"].dtype)
-    q, k, v = heads(t["q"]), heads(k), heads(v)
+    mask = bias[:, None, None, :]
+    if shape.get("causal", True):
+        q_pos = total - lq + torch.arange(lq, device="cuda")
+        band = torch.where(torch.arange(total, device="cuda")[None, :] <= q_pos[:, None],
+                           0.0, -1e9)
+        mask = mask + band[None, None]
+    return heads(t["q"]), heads(k), heads(v), mask.to(t["q"].dtype)
+
+
+def library_call(t, shape):
+    """One F.scaled_dot_product_attention over the same inputs with the same
+    additive mask (keys joined, mask built outside the timed call)."""
+    import torch.nn.functional as F
+
+    q, k, v, mask = library_inputs(t, shape)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  scale=1.0 / dh ** 0.5)
+                                                  scale=1.0 / shape["dh"] ** 0.5)
 
 
 def bound(t, out, lse, shape, dtype_name):
@@ -301,10 +328,24 @@ def check_kernels(fa, kernels):
 
 # (name, JAX kernel body it replaces, training shapes; the first one is
 # reported in the JSON line), checked against the plain backward
+# The bf16 B1b and B3b calls at Dh 128 run the tensor-core passes, which tile
+# each key segment on its own; their small shapes reach each edge of that
+# tiling: Lq < 64 (one query tile, rows past Lq), Ls % 64 != 0 with n = 12
+# (the last S tile zero-filled, the NS tile holding only its n rows), a
+# fully padded batch row (B3b: no valid key at all; B1b: no valid S key),
+# and the band off.
+EDGE_SHAPES = [
+    dict(b=3, h=2, lq=40, ls=100, n=12, dh=128),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, padded_row=True),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, causal=False),
+    dict(b=3, h=2, lq=40, ls=100, n=0, dh=128),
+    dict(b=2, h=2, lq=70, ls=130, n=0, dh=128, causal=False),
+]
 BWD_KERNELS = [
     ("band_attn_segkv_bwd", "recommend_tpu/ops/pallas/flash_attention.py:912", [
         # phase TA layer 0 (batch 512, 2 heads)
         dict(b=512, h=2, lq=181, ls=350, n=12, dh=128),
+        *(s for s in EDGE_SHAPES if s["n"]),
     ]),
     ("band_attn_blocked_bwd_dq", "recommend_tpu/ops/pallas/flash_attention.py:102", [
         # phase TB layer 0 (batch 128 x 2 heads)
@@ -318,9 +359,10 @@ BWD_KERNELS = [
         dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64),
         dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
     ]),
-    # phase SG's shapes only, put in by main. Dh 128 only: the dispatcher
-    # sends model-layout attention here only when Dh % 128 == 0
-    ("band_attn_mh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:654", []),
+    # phase SG's shapes, put first by main, then the edges. Dh 128 only: the
+    # dispatcher sends model-layout attention here only when Dh % 128 == 0
+    ("band_attn_mh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:654",
+     [s for s in EDGE_SHAPES if not s["n"]]),
 ]
 # the kernels phase SG runs: checked first at its shapes
 SG_KERNELS = ("band_attn_mh_fwd", "band_attn_mh_bwd")
@@ -336,10 +378,13 @@ FWD_OF = {"band_attn_segkv_bwd": "band_attn_segkv_fwd",
 
 
 def band_pairs(shape) -> int:
-    """(query row, key) pairs inside the causal band, over batch and heads."""
+    """(query row, key) pairs inside the causal band (all of them when the
+    shape sets causal=False), over batch and heads."""
     b, h, lq, ls, n = (shape[k] for k in ("b", "h", "lq", "ls", "n"))
     total = ls + n
     off = total - lq
+    if not shape.get("causal", True):
+        return lq * total * b * h
     return sum(min(total, off + r + 1) for r in range(lq)) * b * h
 
 
@@ -352,6 +397,15 @@ def bwd_inputs(name, shape, dtype, gen, fa):
     t["do"] = torch.randn(t["q"].shape, generator=gen, device="cuda").to(dtype)
     fwd = FWD_OF.get(name, "band_attn_bh_fwd")
     out, lse = call(fwd, t, shape, fa)
+    if shape.get("padded_row"):
+        # Rows of B1b's padded batch row that see no NS key have no valid key.
+        # There the plain backward recomputes p = 1 also for the NS keys
+        # above the band (their -1e9 band mask rounds to the padded keys'
+        # -1e9), which the kernels skip with the tiles above the band. The
+        # model's dO on such rows is exactly 0, as here.
+        b, lq, hd = t["do"].shape
+        live = (lse > -1e8).to(dtype).transpose(1, 2)[..., None]  # [B, Lq, H, 1]
+        t["do"] = (t["do"].view(b, lq, shape["h"], -1) * live).view(b, lq, hd)
     t["lse"] = lse
     # model layout: per-head statistics [B, H, Lq]
     t["delta"] = fa._delta(out, t["do"], shape["h"] if name in FWD_OF else 0)
@@ -360,16 +414,17 @@ def bwd_inputs(name, shape, dtype, gen, fa):
 
 def bwd_call(name, t, shape, fa, plain=False):
     off, scale = shape["ls"] + shape["n"] - shape["lq"], 1.0 / shape["dh"] ** 0.5
+    causal = shape.get("causal", True)
     fn = getattr(fa, name + ("_plain" if plain else ""))
     if name == "band_attn_segkv_bwd":
         out = fn(t["q"], t["k"], t["v"], t["kns"], t["vns"], t["bias"], t["do"],
-                 t["lse"], t["delta"], scale, off, True, shape["h"])
+                 t["lse"], t["delta"], scale, off, causal, shape["h"])
     elif name == "band_attn_mh_bwd":
         out = fn(t["q"], t["k"], t["v"], t["bias"], t["do"], t["lse"], t["delta"],
-                 scale, off, True, shape["h"])
+                 scale, off, causal, shape["h"])
     else:
         out = fn(t["q"], t["k"], t["v"], t["bias"], t["do"], t["lse"], t["delta"],
-                 scale, off, True)
+                 scale, off, causal)
     return out if isinstance(out, tuple) else (out,)
 
 
@@ -381,20 +436,12 @@ def library_bwd(name, t, shape):
     import torch
     import torch.nn.functional as F
 
-    b, h, lq, ls, n, dh = (shape[k] for k in ("b", "h", "lq", "ls", "n", "dh"))
-    total = ls + n
-    heads = lambda x: x.view(b, x.shape[1], h, dh).transpose(1, 2).detach()
-    k, v, bias = t["k"], t["v"], t["bias"]
-    if n:
-        k, v = torch.cat([k, t["kns"]], 1), torch.cat([v, t["vns"]], 1)
-        bias = torch.cat([bias, bias.new_zeros(b, n)], 1)
-    q_pos = total - lq + torch.arange(lq, device="cuda")
-    band = torch.where(torch.arange(total, device="cuda")[None, :] <= q_pos[:, None],
-                       0.0, -1e9)
-    mask = (bias[:, None, None, :] + band[None, None]).to(t["q"].dtype)
-    q, k, v = (heads(x).requires_grad_(True) for x in (t["q"], k, v))
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0 / dh ** 0.5)
-    do = heads(t["do"])
+    q, k, v, mask = library_inputs(t, shape)
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=1.0 / shape["dh"] ** 0.5)
+    b, lq, h, dh = shape["b"], shape["lq"], shape["h"], shape["dh"]
+    do = t["do"].view(b, lq, h, dh).transpose(1, 2)
     wrt = {"band_attn_blocked_bwd_dq": (q,), "band_attn_blocked_bwd_dkv": (k, v)}.get(
         name, (q, k, v))
     return lambda: torch.autograd.grad(out, wrt, do, retain_graph=True)
@@ -404,9 +451,11 @@ def check_backward_kernels(fa, kernels):
     """Each backward kernel against its plain backward at the training
     shapes, in bf16 (about one ulp: 1e-2 of each output's max|ref|) and f32
     (1e-4 of max|ref|), with its time, the plain and SDPA-backward times and
-    its bound. Measured on the H100: no difference at all, in both types
-    (kernel and plain version accumulate over keys in the same order at the
-    same rounding points), so the limits guard against a changed order."""
+    its bound. The CUDA-core passes (f32, and bf16 but for B1b and B3b)
+    accumulate over keys in the plain version's order at its rounding
+    points and read no difference at all on the H100; the tensor-core
+    passes (bf16 B1b and B3b) round at the same points but sum in another
+    order, and read about one bf16 ulp of the largest gradient."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -442,7 +491,7 @@ def check_backward_kernels(fa, kernels):
                 if i == 0 and dtype == torch.bfloat16:
                     entries[name] = {
                         "name": name, "route": "cuda",
-                        "source": CSRC + "band_attention_bwd.cu",
+                        "source": SOURCE[name],
                         "replaces": replaces, "launches": 0, "max_abs_err": max(
                             (g.float() - r.float()).abs().max().item()
                             for g, r in zip(got, ref)),
@@ -621,17 +670,17 @@ def training_config(num_heads: int, batch_size: int, **overrides):
         dense_lr=1e-3, dense_momentum=0.9, sparse_lr=0.05, **overrides)
 
 
-def f32_step_check(label, cfg, params, batch):
-    """One float32 step through the kernels and one through the plain
-    attention path from the same params on the same batch -> (loss, grad
-    norm, table update) relative differences."""
+def step_vs_plain(cfg, params, batch, mixed: bool):
+    """One step through the kernels and one through the plain attention
+    path from the same params on the same batch, in float32 or (``mixed``)
+    bf16 -> (loss, grad norm, table update) relative differences."""
     import dataclasses
 
     from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
 
     results = []
     for flash in (True, False):
-        c = dataclasses.replace(cfg, use_mixed_precision=False, use_flash_attention=flash)
+        c = dataclasses.replace(cfg, use_mixed_precision=mixed, use_flash_attention=flash)
         trainer = RankingTrainer(c, device="cuda")
         state = trainer.init_state(params)
         state, m = trainer._train_step(state, trainer._put_batch(batch))
@@ -642,9 +691,6 @@ def f32_step_check(label, cfg, params, batch):
     loss_err = abs(l1 - l2) / abs(l2)
     norm_err = abs(n1 - n2) / abs(n2)
     table_err = max(((u1[k] - u2[k]).abs().max() / u2[k].abs().max()).item() for k in u2)
-    assert loss_err <= F32_STEP_LOSS_TOL, f"{label}: f32 loss {l1} vs plain {l2}"
-    assert norm_err <= F32_STEP_NORM_TOL, f"{label}: f32 grad norm {n1} vs plain {n2}"
-    assert table_err <= F32_STEP_TABLE_TOL, f"{label}: f32 table updates differ {table_err}"
     return loss_err, norm_err, table_err
 
 
@@ -689,15 +735,22 @@ def train_phase(label, heads, items, batch_size, per_step, fa, totals):
     assert all(np.isfinite(losses)), f"{label}: non-finite loss {losses}"
     del trainer, state
     torch.cuda.empty_cache()
-    errs = f32_step_check(label, cfg, params, host_batches[0])
+    errs = step_vs_plain(cfg, params, host_batches[0], mixed=False)
+    assert errs[0] <= F32_STEP_LOSS_TOL, f"{label}: f32 loss differs by {errs[0]}"
+    assert errs[1] <= F32_STEP_NORM_TOL, f"{label}: f32 grad norm differs by {errs[1]}"
+    assert errs[2] <= F32_STEP_TABLE_TOL, f"{label}: f32 table updates differ by {errs[2]}"
+    errs16 = step_vs_plain(cfg, params, host_batches[0], mixed=True)
+    assert errs16[0] <= BF16_STEP_LOSS_TOL, f"{label}: bf16 loss differs by {errs16[0]}"
+    assert errs16[1] <= BF16_STEP_NORM_TOL, f"{label}: bf16 grad norm differs by {errs16[1]}"
     p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
     ex_s = batch_size * len(times) / (sum(times) / 1e3)
     log(f"phase {label}: heads {heads}, {items} items/sequence, batch {batch_size} | "
         f"train step n={len(times)} p50 {p50:.3f} ms p99 {p99:.3f} ms, {ex_s:.1f} "
         f"examples/s | loss first {losses[0]:.4f} last {losses[-1]:.4f} mean "
-        f"{np.mean(losses):.4f} | launches {got} | f32 kernels-vs-plain step: loss "
-        f"{errs[0]:.2e}, grad norm {errs[1]:.2e}, table update {errs[2]:.2e} | setup "
-        f"{setup_s:.1f} s [{CARD}]")
+        f"{np.mean(losses):.4f} | launches {got} | kernels-vs-plain step: f32 loss "
+        f"{errs[0]:.2e}, grad norm {errs[1]:.2e}, table update {errs[2]:.2e}; bf16 loss "
+        f"{errs16[0]:.2e}, grad norm {errs16[1]:.2e}, table update {errs16[2]:.2e} | "
+        f"setup {setup_s:.1f} s [{CARD}]")
     del params
     torch.cuda.empty_cache()
 
@@ -813,20 +866,24 @@ def s_trunk_phase(fa, totals):
     for k in got:
         totals[k] += got[k]
     del model
-    # float32 on the same batch: through the kernels and through the plain path
-    norms = []
-    for flash in (True, False):
-        c = dataclasses.replace(cfg, use_mixed_precision=False, use_flash_attention=flash)
-        grads = s_trunk_grads(model_for(c), names, seqs, sv, noise)
-        norms.append(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item())
-        del grads
-    norm_err = abs(norms[0] - norms[1]) / norms[1]
-    assert norm_err <= F32_STEP_NORM_TOL, f"SG: f32 grad norm {norms[0]} vs plain {norms[1]}"
+    # on the same batch, through the kernels and through the plain path:
+    # float32 (the CUDA-core passes) and bf16 (the tensor-core ones)
+    norms = {}
+    for mixed in (False, True):
+        for flash in (True, False):
+            c = dataclasses.replace(cfg, use_mixed_precision=mixed, use_flash_attention=flash)
+            grads = s_trunk_grads(model_for(c), names, seqs, sv, noise)
+            norms[mixed, flash] = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).item()
+            del grads
+    err = {m: abs(norms[m, True] - norms[m, False]) / norms[m, False] for m in (False, True)}
+    assert err[False] <= F32_STEP_NORM_TOL, f"SG: f32 grad norm differs by {err[False]}"
+    assert err[True] <= BF16_STEP_NORM_TOL, f"SG: bf16 grad norm differs by {err[True]}"
     log(f"phase SG: heads 2, {items} items/sequence, batch {batch_size}, kernel layers "
         f"{per_pass} | S-trunk backward n={len(times)} p50 {np.percentile(times, 50):.3f} "
-        f"ms p99 {np.percentile(times, 99):.3f} ms | launches {got} | f32 kernels-vs-"
-        f"plain grad norm {norms[0]:.6g} vs {norms[1]:.6g}, rel {norm_err:.2e} | setup "
-        f"{setup_s:.1f} s [{CARD}]")
+        f"ms p99 {np.percentile(times, 99):.3f} ms | launches {got} | kernels-vs-plain "
+        f"grad norm: f32 {norms[False, True]:.6g} vs {norms[False, False]:.6g}, rel "
+        f"{err[False]:.2e}; bf16 {norms[True, True]:.6g} vs {norms[True, False]:.6g}, rel "
+        f"{err[True]:.2e} | setup {setup_s:.1f} s [{CARD}]")
     del model_for, noise
     torch.cuda.empty_cache()
 

@@ -42,10 +42,14 @@
 // hundred keys, hundreds of batch rows) the work is five matrix products,
 // 10 * Dh flops per (row, key) pair in the band (the dq and dkv passes
 // recompute s and dp, 14 * Dh together), against (3 Lq + 3 Lkv) * Dh
-// elements moved, so it should be bound by operations. This first version
-// does them as float32 FMAs on the CUDA cores (67 TF/s peak) with 116 KB
-// (dq) and 149 KB (dkv) of shared memory at Dh 128, one block per SM; the
-// tensor cores (wgmma) and TMA-fed tiles are the next step.
+// elements moved. The bf16 calls of band_attn_segkv_bwd and band_attn_mh_bwd
+// at Dh 128 (B1b and B3b on the main path) run the same two passes on the
+// tensor cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives
+// their design). Every other call, float32 (a full-float32 tensor-core
+// product does not exist, and TF32 would miss the float32 checks) and
+// other head widths, runs the passes below as float32 FMAs on the CUDA
+// cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv) of shared memory
+// at Dh 128, one block per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,6 +57,7 @@
 #include <stdint.h>
 
 #include "band_attention_common.cuh"
+#include "band_attention_bwd_sm90.cuh"
 
 namespace {
 
@@ -533,12 +538,17 @@ int band_attn_bh_bwd(const void* q, const void* k, const void* v,
 // q/dO [B, Lq, H*Dh], k/v [B, Lkv, H*Dh] with head h in columns h*Dh ..
 // h*Dh+Dh-1, bias [B, Lkv] shared by the heads, lse and delta [B, H, Lq]:
 // the segmented passes with one key segment (L2 = 0, null segment-2
-// pointers with zero strides).
+// pointers with zero strides). bf16 at Dh 128 runs the tensor-core passes,
+// everything else the CUDA-core ones.
 int band_attn_mh_bwd(const void* q, const void* k, const void* v,
                      const float* bias, const void* dout, const float* lse,
                      const float* delta, void* dq, void* dk, void* dv, int b,
                      int h, int lq, int lkv, int dh, int q_offset, int causal,
                      float sm_scale, int dtype, void* stream) {
+  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes, one segment
+    return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, dk, dv,
+                          nullptr, nullptr, b, h, lq, lkv, 0, dh, q_offset, causal, sm_scale,
+                          stream);
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
@@ -555,7 +565,8 @@ int band_attn_mh_bwd(const void* q, const void* k, const void* v,
 // B1b: model layout [B, L, H*Dh] with the keys in two segments, S [B, Ls,
 // H*Dh] with its bias [B, Ls] at positions 0..Ls-1 and NS [B, n, H*Dh], all
 // valid, at positions Ls..Ls+n-1; lse and delta [B, H, Lq]. dK/dV of each
-// segment go to their own tensors.
+// segment go to their own tensors. bf16 at Dh 128 runs the tensor-core
+// passes, everything else the CUDA-core ones.
 int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
                         const void* kns, const void* vns, const float* bias,
                         const void* dout, const float* lse, const float* delta,
@@ -563,6 +574,9 @@ int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
                         int b, int h, int lq, int ls, int n, int dh,
                         int q_offset, int causal, float sm_scale, int dtype,
                         void* stream) {
+  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes
+    return sm90::bwd_bf16(q, k, v, kns, vns, bias, dout, lse, delta, dq, dk, dv, dkns, dvns,
+                          b, h, lq, ls, n, dh, q_offset, causal, sm_scale, stream);
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;

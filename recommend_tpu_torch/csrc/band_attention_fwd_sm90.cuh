@@ -45,39 +45,13 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "band_attention_common.cuh"
+#include "band_attention_sm90_common.cuh"
 
 namespace band_attn {
 namespace sm90 {
 
-constexpr int ROWS = 64;   // query rows per consumer warpgroup: one wgmma M
-constexpr int KEYS = 64;   // keys per K/V tile
-constexpr int STAGES = 2;  // depth of the K/V ring
+constexpr int KEYS = 64;  // keys per K/V tile
 constexpr float LOG2E = 1.4426950408889634f;
-
-// Shared-memory geometry of a 64-row tile of one head of width DH: CHUNKS
-// boxes of 64 rows x CW columns, each swizzled over its CW * 2-byte rows.
-template <int DH>
-struct Tile {
-  static_assert(DH % 16 == 0, "Dh must be a multiple of 16");
-  static constexpr int CW = DH % 64 == 0 ? 64 : DH % 32 == 0 ? 32 : 16;
-  static constexpr int CHUNKS = DH / CW;
-  static constexpr int ROW_BYTES = CW * 2;
-  static constexpr int CHUNK_BYTES = ROWS * ROW_BYTES;
-  static constexpr int BYTES = CHUNKS * CHUNK_BYTES;
-  static constexpr int GROUP_BYTES = 8 * ROW_BYTES;  // 8 rows: one swizzle period
-  // wgmma descriptor layout code: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-  static constexpr uint64_t LAYOUT = CW == 64 ? 1 : CW == 32 ? 2 : 3;
-  static constexpr CUtensorMapSwizzle SWIZZLE =
-      CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-};
 
 template <int DH>
 constexpr int smem_bytes() {
@@ -92,150 +66,6 @@ struct Params {
   int H, Lq, Lkv, q_offset, causal;
   float sm_scale;
 };
-
-// --- PTX wrappers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity) : "memory");
-}
-
-// one box of a 3-D tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2) : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
-               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
-               : "memory");
-}
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 128;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses to accumulator registers across
-// the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a swizzled tile chunk at `addr`. Both
-// byte offsets are the 8-row group stride: for K-major operands the leading
-// one is unused, and the MN-major V operand of one wgmma spans one swizzle
-// atom in N (its chunk), so only the 8-row stride along K is read.
-template <int DH>
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  constexpr uint64_t stride = Tile<DH>::GROUP_BYTES >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (stride << 16) | (stride << 32) |
-         (Tile<DH>::LAYOUT << 62);
-}
-
-// byte offset of (row, byte) within a chunk as TMA's swizzle lays it out:
-// the 16-byte unit index is XORed with the row within the swizzle period
-template <int DH>
-__device__ __forceinline__ uint32_t swizzled(int row, int byte) {
-  constexpr uint32_t mask = (Tile<DH>::ROW_BYTES / 16 - 1) << 4;
-  const uint32_t off = row * Tile<DH>::ROW_BYTES + byte;
-  return off ^ ((off >> 3) & mask);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S = Q K^T: m64n64k16, A and B K-major in shared memory; accumulate = 0
-// overwrites d
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O += P V: m64nNk16 with N the chunk width, A (P) from registers, B (V)
-// MN-major in shared memory (imm-trans-b = 1)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // --- the kernel ------------------------------------------------------------
 
@@ -440,47 +270,6 @@ band_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
   }
   if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// --- host side ---------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda; null if the driver does not provide it
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 3-D map over bf16 [batch, rows, width] with 64-row x CW-column boxes
-template <int DH>
-bool encode(CUtensorMap* map, const void* base, int width, int rows, int batch) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)width * 2, (cuuint64_t)width * 2 * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)Tile<DH>::CW, (cuuint32_t)ROWS, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-            box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<DH>::SWIZZLE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

@@ -11,7 +11,10 @@ Each of its Pallas kernels, forward and backward, has here
   other forward call the CUDA-core kernel);
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
   ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
-  ``band_attn_segkv_bwd``, returning the input gradients);
+  ``band_attn_segkv_bwd``, returning the input gradients; the bf16 calls of
+  ``band_attn_mh_bwd`` and ``band_attn_segkv_bwd`` at Dh 128 run the
+  tensor-core passes of ``csrc/band_attention_bwd_sm90.cuh``, every other
+  backward call the CUDA-core passes);
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
 - a launch count in ``LAUNCHES``, raised by one at each entry-point call.
@@ -259,21 +262,24 @@ def _check(name: str, same, f32, dh: int) -> bool:
     return False
 
 
-_TMA_FORWARDS = ("band_attn_blocked_fwd", "band_attn_mh_fwd")
+# the entry points whose bf16 calls read and write through TMA tensor maps,
+# with the head widths at which they do
+_TMA_ROUTES = {"band_attn_blocked_fwd": _KERNEL_DH, "band_attn_mh_fwd": _KERNEL_DH,
+               "band_attn_mh_bwd": (128,), "band_attn_segkv_bwd": (128,)}
 
 
-def _check_tma_aligned(name: str, tensors) -> None:
-    """The bf16 calls of B2f and B3f, and only those, read and write their
-    tiles through TMA tensor maps, whose base addresses must be 16-byte
-    aligned (row strides, H·Dh·2 bytes, are multiples of 16 for every Dh in
-    ``_KERNEL_DH``). Other calls run the CUDA-core kernel, which needs no
-    alignment."""
-    if name not in _TMA_FORWARDS or tensors[0].dtype != torch.bfloat16:
+def _check_tma_aligned(name: str, tensors, dh: int) -> None:
+    """The bf16 calls of B2f and B3f, and those of B1b and B3b at Dh 128,
+    and only those, read and write their tiles through TMA tensor maps,
+    whose base addresses must be 16-byte aligned (row strides, H·Dh·2 bytes,
+    are multiples of 16 for every Dh in ``_KERNEL_DH``). ``tensors`` are the
+    ones a map is encoded over: the bf16 inputs and outputs. Other calls run
+    the CUDA-core kernels, which need no alignment."""
+    if dh not in _TMA_ROUTES.get(name, ()) or tensors[0].dtype != torch.bfloat16:
         return
     bad = [i for i, t in enumerate(tensors) if t.data_ptr() % 16]
     if bad:
-        raise ValueError(f"{name}: tensors {bad} of (q, k, v, out) are not 16-byte "
-                         f"aligned")
+        raise ValueError(f"{name}: tensors {bad} of the call are not 16-byte aligned")
 
 
 def _forward_only(name: str, public: str, tensors) -> None:
@@ -321,7 +327,7 @@ def _bh_fwd(name, public, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
         return plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
     _forward_only(name, public, (q, k, v, kv_bias))
     out = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, out))
+    _check_tma_aligned(name, (q, k, v, out), dh)
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (bh, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -422,7 +428,7 @@ def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
                                       causal, h)
     _forward_only(name, "fused_mh_band_attention", (q, k, v))
     out = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, out))
+    _check_tma_aligned(name, (q, k, v, out), dh)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -433,7 +439,9 @@ def band_attn_mh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
                      q_offset: int, causal: bool = True, h: int = 1):
     """B3b: (dq, dk, dv) of the model-layout kernel. Forward inputs as
     ``band_attn_mh_fwd``, do [B, Lq, H·Dh] in q's dtype, lse and delta
-    [B, H, Lq] float32. One call runs the dq and the dkv pass."""
+    [B, H, Lq] float32. One call runs the dq and the dkv pass: on the
+    tensor cores for bf16 at Dh 128 (every bf16 tensor 16-byte aligned),
+    on the CUDA cores otherwise."""
     name = "band_attn_mh_bwd"
     b, lq, lkv, dh = _mh_shapes(name, q, k, v, kv_bias, h)
     _grad_shapes(name, q, do, lse, delta, (b, h, lq))
@@ -441,6 +449,7 @@ def band_attn_mh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
         return band_attn_mh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
                                       sm_scale, q_offset, causal, h)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv), dh)
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return dq, dk, dv
@@ -479,7 +488,9 @@ def band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse, delta,
     """B1b: (dq, dk, dv, dkns, dvns) of the segmented-KV kernel. Forward
     inputs as ``band_attn_segkv_fwd``, do [B, Lq, H·Dh] in q's dtype, lse
     and delta [B, H, Lq] float32. The S and NS key gradients come back as
-    separate tensors; one call runs the dq and the dkv pass."""
+    separate tensors; one call runs the dq and the dkv pass: on the tensor
+    cores for bf16 at Dh 128 (every bf16 tensor 16-byte aligned), on the
+    CUDA cores otherwise."""
     name = "band_attn_segkv_bwd"
     b, lq, ls, n, dh = _seg_shapes(name, q, k, v, kns, vns, s_bias, h)
     _grad_shapes(name, q, do, lse, delta, (b, h, lq))
@@ -487,6 +498,7 @@ def band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse, delta,
         return band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse,
                                          delta, sm_scale, q_offset, causal, h)
     grads = tuple(torch.empty_like(t) for t in (q, k, v, kns, vns))
+    _check_tma_aligned(name, (q, k, v, kns, vns, do, *grads), dh)
     _launch(name, (q, k, v, kns, vns, s_bias, do, lse, delta, *grads),
             (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return grads

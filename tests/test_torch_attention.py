@@ -492,11 +492,11 @@ def test_every_preset_head_width_meets_the_tma_row_stride():
 
 def test_tma_alignment_check_rejects_an_unaligned_tensor():
     q = torch.zeros(4, 8, 64, dtype=torch.bfloat16)
-    tfa._check_tma_aligned("band_attn_mh_fwd", (q, q[1:], q, q))
+    tfa._check_tma_aligned("band_attn_mh_fwd", (q, q[1:], q, q), 64)
     flat = torch.zeros(4 * 8 * 64 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(4, 8, 64)  # 2 bytes past an aligned address
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tfa._check_tma_aligned("band_attn_mh_fwd", (q, shifted, q, q))
+        tfa._check_tma_aligned("band_attn_mh_fwd", (q, shifted, q, q), 64)
 
 
 @pytest.mark.parametrize("name, dtype", [("band_attn_bh_fwd", torch.bfloat16),
@@ -507,7 +507,28 @@ def test_tma_alignment_check_spares_calls_that_use_no_tma(name, dtype):
     tensor map, so an unaligned tensor passes there."""
     flat = torch.zeros(4 * 8 * 64 + 1, dtype=dtype)
     shifted = flat[1:].view(4, 8, 64)
-    tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted))
+    tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted), 64)
+
+
+@pytest.mark.parametrize("name, n_tensors", [("band_attn_mh_bwd", 7),
+                                             ("band_attn_segkv_bwd", 11)])
+def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
+    """The bf16 calls of B1b and B3b at Dh 128 encode a tensor map over every
+    bf16 input and output (q, k, v[, kns, vns], dO, and the gradients), so
+    one unaligned tensor among them is refused; float32 calls and other
+    head widths run the CUDA-core passes, which read no tensor map."""
+    flat = torch.zeros(4 * 8 * 128 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 8, 128)
+    aligned = torch.zeros(4, 8, 128, dtype=torch.bfloat16)
+    for i in range(n_tensors):
+        tensors = [aligned] * n_tensors
+        tensors[i] = shifted
+        with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
+            tfa._check_tma_aligned(name, tuple(tensors), 128)
+        tfa._check_tma_aligned(name, tuple(tensors), 64)
+        tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
+                                             flat.float()[1:].view(4, 8, 128)
+                                             for t in tensors), 128)
 
 
 def test_backward_wrappers_reject_bad_statistics():

@@ -10,7 +10,10 @@
 - the bf16 calls of B2f and B3f, and only theirs, reach the tensor-core
   kernel of ``band_attention_fwd_sm90.cuh``, at every head width the
   kernels are instantiated for; their float32 calls stay on the CUDA-core
-  kernel.
+  kernel;
+- the bf16 calls of B1b and B3b at Dh 128, and only those, reach the
+  tensor-core passes of ``band_attention_bwd_sm90.cuh``; their float32 calls
+  and other head widths stay on the CUDA-core passes.
 """
 
 import ast
@@ -160,6 +163,7 @@ def _entry_body(src: str, name: str) -> str:
 
 def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     common = (_build.CSRC / "band_attention_common.cuh").read_text()
+    sm90 = (_build.CSRC / "band_attention_sm90_common.cuh").read_text()
     header = (_build.CSRC / "band_attention_fwd_sm90.cuh").read_text()
     fwd = (_build.CSRC / "band_attention.cu").read_text()
     # the header's switch over Dh expands the shared list, which is _KERNEL_DH
@@ -169,7 +173,10 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     assert "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)" in dispatch
     # one kernel shape: a 64-row consumer warpgroup and a producer warp
     assert re.search(r"template <int DH>\s*__global__ void __launch_bounds__\(128 \+ 32, 2\)", header)
-    assert "wgmma.mma_async" in header and "cp.async.bulk.tensor" in header
+    # its wgmma and TMA wrappers come from the header it shares with the
+    # tensor-core backward
+    assert '#include "band_attention_sm90_common.cuh"' in header
+    assert "wgmma.mma_async" in sm90 and "cp.async.bulk.tensor" in sm90
     # the forwards' source includes it; the backward's does not
     assert '#include "band_attention_fwd_sm90.cuh"' in fwd
     assert "band_attention_fwd_sm90" not in (_build.CSRC / "band_attention_bwd.cu").read_text()
@@ -203,3 +210,68 @@ def test_chip_smoke_holds_the_bf16_blocked_forward_at_every_head_width():
         "ptxas info : Compiling entry function "
         "'_ZN9band_attn4sm9025band_attn_fwd_sm90_kernelILi48EEEvN8CUtensorMapE' for 'sm_90a'")
     assert label == "band_attn_fwd_sm90_kernel<48>"
+
+
+def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes():
+    header = (_build.CSRC / "band_attention_bwd_sm90.cuh").read_text()
+    bwd = (_build.CSRC / "band_attention_bwd.cu").read_text()
+    # the backward's source includes the tensor-core passes, which share the
+    # wrappers of the forward but not its kernel
+    assert '#include "band_attention_bwd_sm90.cuh"' in bwd
+    assert '#include "band_attention_sm90_common.cuh"' in header
+    assert "band_attention_fwd_sm90" not in header
+    # two passes, named so that chip_smoke's ptxas lines tell them apart: dq
+    # a 64-row consumer warpgroup and a producer warp, two blocks to an SM;
+    # dkv two warpgroups of 64 keys each, one block to an SM
+    for kernel, bounds in (("band_attn_bwd_dq_sm90_kernel", r"128 \+ 32, 2"),
+                           ("band_attn_bwd_dkv_sm90_kernel", r"DKV_WARPGROUPS \* 128, 1")):
+        assert re.search(rf"template <int DH>\s*__global__ void __launch_bounds__\({bounds}\)"
+                         rf"\s*{kernel}\(", header), kernel
+        assert re.search(rf"{kernel}<DH>\s*<<<", header), kernel
+    assert "constexpr int DKV_WARPGROUPS = 2;" in header
+    # the dispatch refuses every width but 128
+    assert "if (dh != 128 ||" in header[header.index("int bwd_bf16("):]
+    for name in ("band_attn_segkv_bwd", "band_attn_mh_bwd"):
+        body = _entry_body(bwd, name)
+        # bf16 at Dh 128 returns from the tensor-core passes before anything
+        # else runs; float32 and the other widths go through launch()
+        route = re.search(r"if \(dtype == 1 && dh == 128\)[^;]*?return sm90::bwd_bf16\(", body)
+        assert route and route.start() == body.index("if ("), name
+        rest = body[route.end():].split(";", 1)[1]
+        assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
+    for name in ("band_attn_blocked_bwd_dq", "band_attn_blocked_bwd_dkv", "band_attn_bh_bwd"):
+        body = _entry_body(bwd, name)
+        assert "sm90" not in body and "return launch(a," in body, name
+    # launch() keeps both dtypes on the CUDA-core passes
+    launch = bwd[bwd.index("int launch(const BwdArgs& a"):]
+    assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);" in launch
+    assert "if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, passes, s);" in launch
+
+
+def test_chip_smoke_holds_the_tensor_core_backwards_at_their_edges():
+    """The tensor-core passes tile each key segment on its own; the card
+    check reaches each edge of that tiling for B1b and B3b, in bf16 and f32."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.BWD_KERNELS)
+    # the JSON line's first shape stays the main path's: TA's layer 0 (B3b's
+    # are SG's, put first by main)
+    assert shapes["band_attn_segkv_bwd"][0] == dict(b=512, h=2, lq=181, ls=350, n=12, dh=128)
+    for name in ("band_attn_segkv_bwd", "band_attn_mh_bwd"):
+        edges = shapes[name]
+        assert all(s["dh"] == 128 and s["h"] * s["dh"] * 2 % 16 == 0 for s in edges), name
+        assert any(s["lq"] < 64 for s in edges), name  # one query tile, rows past Lq
+        assert any(s["ls"] % 64 for s in edges), name  # the last S tile zero-filled
+        assert any(not s.get("causal", True) for s in edges), name  # the band off
+        # a batch row whose S keys are all padded (make_inputs pads row 0)
+        assert any(s["b"] > 1 and s.get("padded_row", s["n"] == 0) for s in edges), name
+    assert any(s["ls"] % 64 and s["n"] == 12 for s in shapes["band_attn_segkv_bwd"])
+    assert all(s["n"] == 0 for s in shapes["band_attn_mh_bwd"])
+    assert chip_smoke.SOURCE["band_attn_segkv_bwd"].endswith("band_attention_bwd_sm90.cuh")
+    assert chip_smoke.SOURCE["band_attn_mh_bwd"].endswith("band_attention_bwd_sm90.cuh")
+    assert set(chip_smoke.SOURCE) == set(tfa.LAUNCHES)
+    label = chip_smoke.ptxas_label(
+        "ptxas info : Compiling entry function "
+        "'_ZN9band_attn4sm9029band_attn_bwd_dkv_sm90_kernelILi128EEEvNS0_7BwdMapsENS0_9BwdParamsE' "
+        "for 'sm_90a'")
+    assert label == "band_attn_bwd_dkv_sm90_kernel<128>"
