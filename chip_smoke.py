@@ -9,17 +9,18 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the band-attention kernels from csrc/ with nvcc (sm_90a), one
    nvcc per source, all at once;
 3. hold each of the four forward kernels against its plain PyTorch version
-   at the serving shapes (the blocked kernel also at Dh 64 and 96, the bh
-   kernel at Dh 96, ranking_base's head width, and the mh kernel first at
-   the S-trunk gradient's shapes), in bf16 and f32 (the bf16 blocked and mh
-   calls run the tensor-core kernel, the rest the CUDA-core one), and time
-   kernel, plain version and
+   at the serving shapes (the blocked kernel also at every other Dh, the bh
+   kernel at Dh 96, ranking_base's head width, the mh kernel first at the
+   S-trunk gradient's shapes, and the segmented kernel also at Dh 64 and 48
+   and at small shapes that reach each edge of its tiling), in bf16 and f32
+   (the bf16 blocked, mh and segmented calls run the tensor-core kernel,
+   the rest the CUDA-core one), and time kernel, plain version and
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
    with CUDA events, beside the kernel's bound; then the same for the five
    backward kernels at the training shapes (B3b at the S-trunk gradient's
    shapes), against their plain backward and SDPA's backward (the bf16
-   B1b and B3b calls run the tensor-core passes, also at small shapes that
-   reach each edge of their tiling);
+   B1b and B3b calls at Dh 128 run both tensor-core passes and B2dkv's its
+   dkv pass, also at small shapes that reach each edge of their tiling);
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -113,6 +114,19 @@ BF16_STEP_LOSS_TOL = 2e-3
 BF16_STEP_NORM_TOL = 2e-3
 CARD = ""
 
+# The tensor-core kernels tile each key segment on its own; these small
+# shapes reach each edge of that tiling: Lq < 64 (one query tile, rows past
+# Lq), Ls % 64 != 0 with n = 12 (the last S tile zero-filled, the NS tile
+# holding only its n rows), a fully padded batch row (n = 0: no valid key at
+# all; n = 12: no valid S key, so rows below Ls have no valid key), and the
+# band off. B1f and B1b take those with n = 12, B3b those with n = 0.
+EDGE_SHAPES = [
+    dict(b=3, h=2, lq=40, ls=100, n=12, dh=128),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, padded_row=True),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, causal=False),
+    dict(b=3, h=2, lq=40, ls=100, n=0, dh=128),
+    dict(b=2, h=2, lq=70, ls=130, n=0, dh=128, causal=False),
+]
 # (name, JAX kernel body it replaces, shapes on the main path). The first
 # shape of each kernel is the one its JSON entry reports (its heaviest).
 KERNELS = [
@@ -150,6 +164,13 @@ KERNELS = [
         dict(b=128, h=2, lq=243, ls=352, n=12, dh=128),
         dict(b=128, h=2, lq=121, ls=231, n=12, dh=128),
         dict(b=128, h=2, lq=103, ls=194, n=12, dh=128),
+        # training phase TA's layer 0 (batch 512, 2 heads)
+        dict(b=512, h=2, lq=181, ls=350, n=12, dh=128),
+        # the edges of the tensor-core kernel's tiling (EDGE_SHAPES, above),
+        # then the NS segment at a 64- and a 16-column chunk
+        *(s for s in EDGE_SHAPES if s["n"]),
+        dict(b=64, h=2, lq=364, ls=595, n=12, dh=64),
+        dict(b=64, h=2, lq=364, ls=595, n=12, dh=48),
     ]),
 ]
 # the source of each kernel's bf16 body on the main path, for the kernels'
@@ -158,11 +179,11 @@ CSRC = "recommend_tpu_torch/csrc/"
 SOURCE = {"band_attn_blocked_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_mh_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_bh_fwd": CSRC + "band_attention.cu",
-          "band_attn_segkv_fwd": CSRC + "band_attention.cu",
+          "band_attn_segkv_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_segkv_bwd": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_mh_bwd": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_blocked_bwd_dq": CSRC + "band_attention_bwd.cu",
-          "band_attn_blocked_bwd_dkv": CSRC + "band_attention_bwd.cu",
+          "band_attn_blocked_bwd_dkv": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_bh_bwd": CSRC + "band_attention_bwd.cu"}
 
 
@@ -294,9 +315,21 @@ def check_kernels(fa, kernels):
                 out, lse = call(name, t, shape, fa)
                 torch.cuda.synchronize()
                 ref, ref_lse = call(name, t, shape, fa, plain=True)
-                err = (out.float() - ref.float()).abs().max().item()
-                ref_max = ref.float().abs().max().item()
                 live = ref_lse > -1e8  # rows with a valid key
+                # On a padded batch row with an NS segment, the rows below Ls
+                # have no valid key: there the plain version also weighs the
+                # NS keys above the band (their -1e9 band mask rounds to the
+                # padding's -1e9), which the kernels skip with the tiles above
+                # the band. The model never reads those rows; leave them out.
+                diff, ref_abs = (out.float() - ref.float()).abs(), ref.float().abs()
+                note = ""
+                if shape.get("padded_row") and shape["n"]:
+                    b, lq, h = shape["b"], shape["lq"], shape["h"]
+                    keep = live.transpose(1, 2)[..., None]  # [B, Lq, H, 1]
+                    diff = diff.view(b, lq, h, -1) * keep
+                    ref_abs = ref_abs.view(b, lq, h, -1) * keep
+                    note = f", {int((~keep).sum())} of {b * lq * h} keyless rows left out"
+                err, ref_max = diff.max().item(), ref_abs.max().item()
                 lse_err = (lse - ref_lse)[live].abs().max().item()
                 assert torch.isfinite(out).all(), f"{name} {shape}: non-finite output"
                 assert bool((lse[~live] < -1e8).all()), f"{name}: masked-row lse"
@@ -308,7 +341,8 @@ def check_kernels(fa, kernels):
                 lib_ms = cuda_ms(library_call(t, shape), 20)
                 b_ms, b_by = bound(t, out, lse, shape, dn)
                 log(f"kernel {name} {dn} {shape}: max_abs_err {err:.3g} "
-                    f"(max|ref| {ref_max:.3g}) lse_err {lse_err:.3g} | {ms:.4f} ms, "
+                    f"(max|ref| {ref_max:.3g}{note}) "
+                    f"lse_err {lse_err:.3g} | {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, "
                     f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
                     f"[{CARD}]")
@@ -328,19 +362,6 @@ def check_kernels(fa, kernels):
 
 # (name, JAX kernel body it replaces, training shapes; the first one is
 # reported in the JSON line), checked against the plain backward
-# The bf16 B1b and B3b calls at Dh 128 run the tensor-core passes, which tile
-# each key segment on its own; their small shapes reach each edge of that
-# tiling: Lq < 64 (one query tile, rows past Lq), Ls % 64 != 0 with n = 12
-# (the last S tile zero-filled, the NS tile holding only its n rows), a
-# fully padded batch row (B3b: no valid key at all; B1b: no valid S key),
-# and the band off.
-EDGE_SHAPES = [
-    dict(b=3, h=2, lq=40, ls=100, n=12, dh=128),
-    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, padded_row=True),
-    dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, causal=False),
-    dict(b=3, h=2, lq=40, ls=100, n=0, dh=128),
-    dict(b=2, h=2, lq=70, ls=130, n=0, dh=128, causal=False),
-]
 BWD_KERNELS = [
     ("band_attn_segkv_bwd", "recommend_tpu/ops/pallas/flash_attention.py:912", [
         # phase TA layer 0 (batch 512, 2 heads)
@@ -353,6 +374,12 @@ BWD_KERNELS = [
     ]),
     ("band_attn_blocked_bwd_dkv", "recommend_tpu/ops/pallas/flash_attention.py:142", [
         dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
+        # the edges of the tensor-core dkv pass at kv > 1024 (Lkv % 64 != 0,
+        # the last key tile zero-filled): Lq < 64, a partial last query
+        # tile, the band off; row 0 of each is fully padded (n = 0)
+        dict(b=3, h=1, lq=40, ls=1100, n=0, dh=128),
+        dict(b=3, h=1, lq=555, ls=1100, n=0, dh=128),
+        dict(b=2, h=1, lq=300, ls=1100, n=0, dh=128, causal=False),
     ]),
     ("band_attn_bh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:420", [
         # phase TC layer 0 (batch 512 x 4 heads), then ranking_base's Dh 96
@@ -451,11 +478,12 @@ def check_backward_kernels(fa, kernels):
     """Each backward kernel against its plain backward at the training
     shapes, in bf16 (about one ulp: 1e-2 of each output's max|ref|) and f32
     (1e-4 of max|ref|), with its time, the plain and SDPA-backward times and
-    its bound. The CUDA-core passes (f32, and bf16 but for B1b and B3b)
-    accumulate over keys in the plain version's order at its rounding
-    points and read no difference at all on the H100; the tensor-core
-    passes (bf16 B1b and B3b) round at the same points but sum in another
-    order, and read about one bf16 ulp of the largest gradient."""
+    its bound. The CUDA-core passes (f32, and bf16 but for B1b, B3b and
+    B2dkv) accumulate over keys in the plain version's order at its
+    rounding points and read no difference at all on the H100; the
+    tensor-core passes (bf16 B1b, B3b and B2dkv) round at the same points
+    but sum in another order, and read about one bf16 ulp of the largest
+    gradient."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -1011,16 +1039,17 @@ def session_phase(fa, totals):
 
 
 def ptxas_label(line: str) -> str:
-    """``name<type, template ints>`` of the kernel whose mangled name a
-    ptxas 'Compiling entry function' line gives, e.g.
-    band_attn_kernel<bf16, 128> or band_attn_fwd_sm90_kernel<128>."""
+    """``name<type, template ints and bools>`` of the kernel whose mangled
+    name a ptxas 'Compiling entry function' line gives, e.g.
+    band_attn_kernel<bf16, 128> or band_attn_fwd_sm90_kernel<128, true>."""
     import re
 
     m = re.search(r"(band_attn_\w*?kernel)I(\w*?)EE", line)
     if not m:
         return line.strip()
-    targs = m.group(2) + "E"  # e.g. fLi128E, 13__nv_bfloat16Li96E, Li128E
-    args = re.findall(r"Li(\d+)E", targs)
+    targs = m.group(2) + "E"  # e.g. fLi128E, 13__nv_bfloat16Li96E, Li128ELb1E
+    args = [v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([ib])(\d+)E", targs)]
     if not targs.startswith("Li"):
         args.insert(0, "bf16" if "bfloat16" in targs else "f32")
     return f"{m.group(1)}<{', '.join(args)}>"

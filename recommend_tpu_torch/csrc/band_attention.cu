@@ -25,12 +25,13 @@
 // all masked, and there the plain reference (a uniform softmax over the real
 // keys) is what this kernel computes.
 //
-// Two bodies serve them. The bfloat16 calls of B2f and B3f run on the
+// Two bodies serve them. The bfloat16 calls of B2f, B3f and B1f run on the
 // tensor cores: band_attention_fwd_sm90.cuh (wgmma for both products,
-// TMA-fed tiles in a K/V ring; its note says what bounds them and what it
-// does). Everything else runs the CUDA-core body below: every float32 call
-// (the tensor cores have no full-float32 product, and TF32 would not hold
-// the float32 checks at 1e-4) and B1f and B4f in both types.
+// TMA-fed tiles in a K/V ring, B1f's NS segment through its own tensor maps;
+// its note says what bounds them and what it does). Everything else runs the
+// CUDA-core body below: every float32 call (the tensor cores have no
+// full-float32 product, and TF32 would not hold the float32 checks at 1e-4)
+// and B4f in both types.
 // The CUDA-core body: one block per (batch, head, 64-row query tile); the
 // block loops over 64-key tiles only up to the band edge of its last row
 // (tiles wholly above the band are skipped, as _run_block does), keeps the
@@ -298,8 +299,8 @@ int band_attn_blocked_fwd(const void* q, const void* k, const void* v,
                           int lq, int lkv, int dh, int q_offset, int causal,
                           float sm_scale, int dtype, void* stream) {
   if (dtype == 1)  // bf16: the tensor-core kernel, [BH, L, Dh] as H = 1
-    return sm90::fwd_bf16(q, k, v, bias, out, lse, bh, 1, lq, lkv, dh, q_offset, causal,
-                          sm_scale, stream);
+    return sm90::fwd_bf16(q, k, v, nullptr, nullptr, bias, out, lse, bh, 1, lq, lkv, 0, dh,
+                          q_offset, causal, sm_scale, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = bh_args(q, k, v, bias, out, lse, lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, bh, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
@@ -319,9 +320,9 @@ int band_attn_mh_fwd(const void* q, const void* k, const void* v,
                      const float* bias, void* out, float* lse, int b, int h,
                      int lq, int lkv, int dh, int q_offset, int causal,
                      float sm_scale, int dtype, void* stream) {
-  if (dtype == 1)  // bf16: the tensor-core kernel
-    return sm90::fwd_bf16(q, k, v, bias, out, lse, b, h, lq, lkv, dh, q_offset, causal,
-                          sm_scale, stream);
+  if (dtype == 1)  // bf16: the tensor-core kernel, one key segment
+    return sm90::fwd_bf16(q, k, v, nullptr, nullptr, bias, out, lse, b, h, lq, lkv, 0, dh,
+                          q_offset, causal, sm_scale, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = mh_args(q, k, v, bias, out, lse, h, lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, b, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
@@ -335,11 +336,15 @@ int band_attn_segkv_fwd(const void* q, const void* k, const void* v,
                         void* out, float* lse, int b, int h, int lq, int ls,
                         int n, int dh, int q_offset, int causal,
                         float sm_scale, int dtype, void* stream) {
+  if (dtype == 1)  // bf16: the tensor-core kernel, NS through its own maps
+    return sm90::fwd_bf16(q, k, v, kns, vns, bias, out, lse, b, h, lq, ls, n, dh, q_offset,
+                          causal, sm_scale, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = mh_args(q, k, v, bias, out, lse, h, lq, ls, dh, q_offset, causal, sm_scale);
   const long long hd = (long long)h * dh;
   a.k2 = kns; a.v2 = vns; a.kv2_bs = n * hd; a.kv2_hs = dh; a.kv2_rs = hd;
   a.L2 = n;
-  return launch(a, b, dh, dtype, stream);
+  return launch(a, b, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
 }
 
 }  // extern "C"

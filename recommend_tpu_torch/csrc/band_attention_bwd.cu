@@ -45,11 +45,12 @@
 // elements moved. The bf16 calls of band_attn_segkv_bwd and band_attn_mh_bwd
 // at Dh 128 (B1b and B3b on the main path) run the same two passes on the
 // tensor cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives
-// their design). Every other call, float32 (a full-float32 tensor-core
-// product does not exist, and TF32 would miss the float32 checks) and
-// other head widths, runs the passes below as float32 FMAs on the CUDA
-// cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv) of shared memory
-// at Dh 128, one block per SM.
+// their design), and those of band_attn_blocked_bwd_dkv at Dh 128 (B2dkv)
+// its dkv pass alone. Every other call, float32 (a full-float32 tensor-core
+// product does not exist, and TF32 would miss the float32 checks), other
+// head widths, B2dq and B4b, runs the passes below as float32 FMAs on the
+// CUDA cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv) of shared
+// memory at Dh 128, one block per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -428,8 +429,6 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
 // launch
 // ---------------------------------------------------------------------------
 
-enum Pass { DQ = 1, DKV = 2 };
-
 template <typename T, int DH>
 cudaError_t launch_t(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
   cudaError_t e;
@@ -511,13 +510,19 @@ int band_attn_blocked_bwd_dq(const void* q, const void* k, const void* v,
   return launch(a, bh, dh, dtype, DQ, stream);
 }
 
-// B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]
+// B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]. bf16 at
+// Dh 128 runs the tensor-core dkv pass alone, everything else the CUDA-core
+// one.
 int band_attn_blocked_bwd_dkv(const void* q, const void* k, const void* v,
                               const float* bias, const void* dout,
                               const float* lse, const float* delta, void* dk,
                               void* dv, int bh, int lq, int lkv, int dh,
                               int q_offset, int causal, float sm_scale,
                               int dtype, void* stream) {
+  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core dkv pass, H = 1
+    return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, nullptr, dk, dv,
+                          nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal, sm_scale,
+                          DKV, stream);
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, nullptr, dk, dv,
                       lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, bh, dh, dtype, DKV, stream);
@@ -548,7 +553,7 @@ int band_attn_mh_bwd(const void* q, const void* k, const void* v,
   if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes, one segment
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, dk, dv,
                           nullptr, nullptr, b, h, lq, lkv, 0, dh, q_offset, causal, sm_scale,
-                          stream);
+                          DQ | DKV, stream);
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
@@ -576,7 +581,7 @@ int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
                         void* stream) {
   if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes
     return sm90::bwd_bf16(q, k, v, kns, vns, bias, dout, lse, delta, dq, dk, dv, dkns, dvns,
-                          b, h, lq, ls, n, dh, q_offset, causal, sm_scale, stream);
+                          b, h, lq, ls, n, dh, q_offset, causal, sm_scale, DQ | DKV, stream);
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;

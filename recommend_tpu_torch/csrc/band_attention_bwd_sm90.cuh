@@ -1,10 +1,12 @@
 // Band-masked attention backward on Hopper's tensor cores, bf16 (sm_90a).
 //
-// Serves the bfloat16 calls at Dh 128 of two entry points of
+// Serves the bfloat16 calls at Dh 128 of three entry points of
 // band_attention_bwd.cu:
 //
-//   band_attn_segkv_bwd  replaces _fmhseg_bwd_kernel :912 (B1b)
-//   band_attn_mh_bwd     replaces _fmh_bwd_kernel    :654 (B3b)
+//   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel :912 (B1b, both passes)
+//   band_attn_mh_bwd           replaces _fmh_bwd_kernel    :654 (B3b, both passes)
+//   band_attn_blocked_bwd_dkv  replaces _dkv_kernel        :142 (B2dkv, the dkv
+//                                                          pass alone, [BH, L, Dh])
 //
 // of recommend_tpu/ops/pallas/flash_attention.py. It computes what they do
 // (band_attention_bwd.cu's note): for query row r and key j, s is formed as
@@ -19,19 +21,26 @@
 // above the band; the model's dO on such rows is 0. B1b
 // has two key segments: S (L1 keys at positions 0..L1-1, with the bias) and
 // NS (L2 keys at L1..L1+L2-1, all valid, no bias), whose gradients go to
-// their own tensors; B3b is the same with L2 = 0.
+// their own tensors; B3b is the same with L2 = 0, and B2dkv is B3b's dkv
+// pass in the [BH, L, Dh] layout (H = 1, one row of bias, lse and delta per
+// batch-head row).
 //
 // What bounds it on the H100: B1b at phase TA's layer 0 (512 x 2 heads, 181
 // query rows, 350 + 12 keys, Dh 128) does 10 * Dh flops per in-band (row,
 // key) pair, 64.5 GFLOP (0.065 ms at 989 TF/s), against 524 MB moved (0.157
 // ms at 3.35 TB/s): bound by bytes. The two passes below recompute S and dP,
 // 14 * Dh flops a pair, so the tensor cores must run at about 60% of their
-// peak for the bytes to be the limit.
+// peak for the bytes to be the limit. B2dkv at phase TB's layer 0 (256
+// batch-head rows, 607 query rows, 1214 keys, Dh 128) does 8 * Dh flops per
+// in-band pair (S^T, dP^T, dV and dK), 145 GFLOP against 400 MB: bound by
+// operations (0.147 ms).
 //
 // What the design does about it:
 // - two passes, no atomics on the outputs (deterministic), as the CUDA-core
 //   kernels: a dq pass, one block per (64 query rows, head, batch row), and
-//   a dkv pass, one block per (two 64-key tiles, head, batch row);
+//   a dkv pass, one block per (two 64-key tiles, head, batch row). A call
+//   names the passes it runs (DQ, DKV), and only their tensor maps are
+//   encoded and only they are launched;
 // - all five products on wgmma, from tiles laid out as the forward lays
 //   them out (band_attention_sm90_common.cuh), with no transposed copy:
 //   dq pass: S = Q K^T and dP = dO V^T K-major; dQ += dS K with dS taken
@@ -81,10 +90,15 @@
 #include "band_attention_sm90_common.cuh"
 
 namespace band_attn {
+
+// the passes of a backward call, for the CUDA-core and the tensor-core bodies
+enum Pass { DQ = 1, DKV = 2 };
+
 namespace sm90 {
 
 // the tensor maps of one backward call, all over bf16 [B, L, H*Dh]; the
-// second segment's four are left empty when it has no rows
+// second segment's four are left empty when it has no rows, and a pass's
+// outputs when it does not run
 struct BwdMaps {
   CUtensorMap q, dout, k, v, k2, v2, dq, dk, dv, dk2, dv2;
 };
@@ -577,51 +591,62 @@ band_attn_bwd_dkv_sm90_kernel(const __grid_constant__ BwdMaps m, const BwdParams
 template <int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* k2,
                        const void* v2, const void* dout, void* dq, void* dk, void* dv, void* dk2,
-                       void* dv2, const BwdParams& p, int B, cudaStream_t stream) {
+                       void* dv2, const BwdParams& p, int B, int passes, cudaStream_t stream) {
   BwdMaps m{};
   const int w = p.H * DH;
+  const bool seg = p.L2 > 0;
+  // both passes read Q, dO, K and V; each writes its own outputs
   if (!encode<DH>(&m.q, q, w, p.Lq, B) || !encode<DH>(&m.dout, dout, w, p.Lq, B) ||
-      !encode<DH>(&m.dq, dq, w, p.Lq, B) || !encode<DH>(&m.k, k, w, p.L1, B) ||
-      !encode<DH>(&m.v, v, w, p.L1, B) || !encode<DH>(&m.dk, dk, w, p.L1, B) ||
-      !encode<DH>(&m.dv, dv, w, p.L1, B))
+      !encode<DH>(&m.k, k, w, p.L1, B) || !encode<DH>(&m.v, v, w, p.L1, B) ||
+      (seg && (!encode<DH>(&m.k2, k2, w, p.L2, B) || !encode<DH>(&m.v2, v2, w, p.L2, B))))
     return cudaErrorInvalidValue;
-  if (p.L2 > 0 &&
-      (!encode<DH>(&m.k2, k2, w, p.L2, B) || !encode<DH>(&m.v2, v2, w, p.L2, B) ||
-       !encode<DH>(&m.dk2, dk2, w, p.L2, B) || !encode<DH>(&m.dv2, dv2, w, p.L2, B)))
+  if ((passes & DQ) && !encode<DH>(&m.dq, dq, w, p.Lq, B)) return cudaErrorInvalidValue;
+  if ((passes & DKV) &&
+      (!encode<DH>(&m.dk, dk, w, p.L1, B) || !encode<DH>(&m.dv, dv, w, p.L1, B) ||
+       (seg && (!encode<DH>(&m.dk2, dk2, w, p.L2, B) || !encode<DH>(&m.dv2, dv2, w, p.L2, B)))))
     return cudaErrorInvalidValue;
-  constexpr int dq_smem = dq_smem_bytes<DH>(), dkv_smem = dkv_smem_bytes<DH>();
-  cudaError_t e = cudaFuncSetAttribute(band_attn_bwd_dq_sm90_kernel<DH>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(band_attn_bwd_dkv_sm90_kernel<DH>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
-  if (e != cudaSuccess) return e;
-  const dim3 dq_grid((p.Lq + ROWS - 1) / ROWS, p.H, B);
-  band_attn_bwd_dq_sm90_kernel<DH><<<dq_grid, 128 + 32, dq_smem, stream>>>(m, p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int key_tiles = (p.L1 + ROWS - 1) / ROWS + (p.L2 + ROWS - 1) / ROWS;
-  const dim3 dkv_grid((key_tiles + DKV_WARPGROUPS - 1) / DKV_WARPGROUPS, p.H, B);
-  band_attn_bwd_dkv_sm90_kernel<DH>
-      <<<dkv_grid, DKV_WARPGROUPS * 128, dkv_smem, stream>>>(m, p);
-  return cudaGetLastError();
+  cudaError_t e;
+  if (passes & DQ) {
+    constexpr int smem = dq_smem_bytes<DH>();
+    e = cudaFuncSetAttribute(band_attn_bwd_dq_sm90_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((p.Lq + ROWS - 1) / ROWS, p.H, B);
+    band_attn_bwd_dq_sm90_kernel<DH><<<grid, 128 + 32, smem, stream>>>(m, p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (passes & DKV) {
+    constexpr int smem = dkv_smem_bytes<DH>();
+    e = cudaFuncSetAttribute(band_attn_bwd_dkv_sm90_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    const int key_tiles = (p.L1 + ROWS - 1) / ROWS + (p.L2 + ROWS - 1) / ROWS;
+    const dim3 grid((key_tiles + DKV_WARPGROUPS - 1) / DKV_WARPGROUPS, p.H, B);
+    band_attn_bwd_dkv_sm90_kernel<DH><<<grid, DKV_WARPGROUPS * 128, smem, stream>>>(m, p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // The bf16 backward at Dh 128 over q/dO/dq [B, Lq, H*Dh], the first key
 // segment k/v/dk/dv [B, L1, H*Dh] with its bias [B, L1], the second
 // k2/v2/dk2/dv2 [B, L2, H*Dh] (null when L2 = 0), lse and delta [B, H, Lq]
-// (every bf16 tensor 16-byte aligned). Returns the first launch's CUDA
-// error, or cudaErrorInvalidValue for a shape it does not take or a tensor
-// map that does not encode.
+// (every bf16 tensor 16-byte aligned). `passes` (DQ, DKV or both) names the
+// passes to run; the outputs of a pass that does not run may be null.
+// Returns the first launch's CUDA error, or cudaErrorInvalidValue for a
+// shape it does not take or a tensor map that does not encode.
 inline int bwd_bf16(const void* q, const void* k, const void* v, const void* k2, const void* v2,
                     const float* bias, const void* dout, const float* lse, const float* delta,
                     void* dq, void* dk, void* dv, void* dk2, void* dv2, int B, int H, int Lq,
-                    int L1, int L2, int dh, int q_offset, int causal, float sm_scale,
+                    int L1, int L2, int dh, int q_offset, int causal, float sm_scale, int passes,
                     void* stream) {
-  if (dh != 128 || B <= 0 || H <= 0 || Lq <= 0 || L1 <= 0 || L2 < 0 || B > 65535 || H > 65535)
+  if (dh != 128 || B <= 0 || H <= 0 || Lq <= 0 || L1 <= 0 || L2 < 0 || B > 65535 || H > 65535 ||
+      passes <= 0 || (passes & ~(DQ | DKV)))
     return (int)cudaErrorInvalidValue;
   const BwdParams p{bias, lse, delta, H, Lq, L1, L2, q_offset, causal, sm_scale};
-  return (int)launch_bwd<128>(q, k, v, k2, v2, dout, dq, dk, dv, dk2, dv2, p, B,
+  return (int)launch_bwd<128>(q, k, v, k2, v2, dout, dq, dk, dv, dk2, dv2, p, B, passes,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -6,15 +6,17 @@ Each of its Pallas kernels, forward and backward, has here
 - a wrapper named after its CUDA entry point (forward in
   ``csrc/band_attention.cu``: ``band_attn_blocked_fwd``, ``band_attn_bh_fwd``,
   ``band_attn_mh_fwd``, ``band_attn_segkv_fwd``, returning ``(out, lse)``;
-  the bf16 calls of ``band_attn_blocked_fwd`` and ``band_attn_mh_fwd`` run
-  the tensor-core kernel of ``csrc/band_attention_fwd_sm90.cuh``, every
-  other forward call the CUDA-core kernel);
+  the bf16 calls of ``band_attn_blocked_fwd``, ``band_attn_mh_fwd`` and
+  ``band_attn_segkv_fwd`` run the tensor-core kernel of
+  ``csrc/band_attention_fwd_sm90.cuh``, every other forward call the
+  CUDA-core kernel);
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
   ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
   ``band_attn_segkv_bwd``, returning the input gradients; the bf16 calls of
-  ``band_attn_mh_bwd`` and ``band_attn_segkv_bwd`` at Dh 128 run the
-  tensor-core passes of ``csrc/band_attention_bwd_sm90.cuh``, every other
-  backward call the CUDA-core passes);
+  ``band_attn_mh_bwd``, ``band_attn_segkv_bwd`` and
+  ``band_attn_blocked_bwd_dkv`` at Dh 128 run the tensor-core passes of
+  ``csrc/band_attention_bwd_sm90.cuh`` (the last its dkv pass alone), every
+  other backward call the CUDA-core passes);
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
 - a launch count in ``LAUNCHES``, raised by one at each entry-point call.
@@ -213,14 +215,28 @@ def _joined(s_bias, k, v, kns, vns):
 
 def band_attn_segkv_fwd_plain(q, k, v, kns, vns, s_bias, sm_scale, q_offset,
                               causal, h):
-    """One softmax over the joined [S ; NS] keys."""
+    """One softmax over the joined [S ; NS] keys.
+
+    On a query row with no valid key (every S key at or below its position
+    padded, and no NS key in its band) this gives a uniform softmax over its
+    padded S keys and every NS key above the band: their -1e9 band mask
+    rounds to the padding's -1e9. The kernels skip key tiles wholly above the
+    band of a tile's last row, the NS tile among them, so on such rows their
+    out and lse differ from this. The model never reads those rows: its
+    logits and gradients do not depend on them."""
     kj, vj, bias = _joined(s_bias, k, v, kns, vns)
     return band_attn_mh_fwd_plain(q, kj, vj, bias, sm_scale, q_offset, causal, h)
 
 
 def band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse, delta,
                               sm_scale, q_offset, causal, h):
-    """Model layout, lse and delta [B, H, Lq] -> (dq, dk, dv, dkns, dvns)."""
+    """Model layout, lse and delta [B, H, Lq] -> (dq, dk, dv, dkns, dvns).
+
+    On a query row with no valid key this recomputes p = 1 for its padded
+    S keys and for every NS key above the band as well (both round to lse's
+    -1e9), where the kernels skip the key tiles above the band; so with a
+    nonzero dO on such a row their gradients differ from this. The model's
+    dO there is exactly 0."""
     kj, vj, bias = _joined(s_bias, k, v, kns, vns)
     dq, dkj, dvj = (_heads_last(g) for g in _band_attention_bwd_plain(
         _heads_first(q, h), _heads_first(kj, h), _heads_first(vj, h),
@@ -265,16 +281,18 @@ def _check(name: str, same, f32, dh: int) -> bool:
 # the entry points whose bf16 calls read and write through TMA tensor maps,
 # with the head widths at which they do
 _TMA_ROUTES = {"band_attn_blocked_fwd": _KERNEL_DH, "band_attn_mh_fwd": _KERNEL_DH,
-               "band_attn_mh_bwd": (128,), "band_attn_segkv_bwd": (128,)}
+               "band_attn_segkv_fwd": _KERNEL_DH, "band_attn_mh_bwd": (128,),
+               "band_attn_segkv_bwd": (128,), "band_attn_blocked_bwd_dkv": (128,)}
 
 
 def _check_tma_aligned(name: str, tensors, dh: int) -> None:
-    """The bf16 calls of B2f and B3f, and those of B1b and B3b at Dh 128,
-    and only those, read and write their tiles through TMA tensor maps,
-    whose base addresses must be 16-byte aligned (row strides, H·Dh·2 bytes,
-    are multiples of 16 for every Dh in ``_KERNEL_DH``). ``tensors`` are the
-    ones a map is encoded over: the bf16 inputs and outputs. Other calls run
-    the CUDA-core kernels, which need no alignment."""
+    """The bf16 calls of B2f, B3f and B1f, and those of B1b, B3b and B2dkv
+    at Dh 128, and only those, read and write their tiles through TMA
+    tensor maps, whose base addresses must be 16-byte aligned (row strides,
+    H·Dh·2 bytes, are multiples of 16 for every Dh in ``_KERNEL_DH``).
+    ``tensors`` are the ones a map is encoded over: the bf16 inputs and
+    outputs. Other calls run the CUDA-core kernels, which need no
+    alignment."""
     if dh not in _TMA_ROUTES.get(name, ()) or tensors[0].dtype != torch.bfloat16:
         return
     bad = [i for i, t in enumerate(tensors) if t.data_ptr() % 16]
@@ -379,13 +397,16 @@ def band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
 def band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
                               q_offset: int, causal: bool = True):
     """B2dkv: (dk, dv) of the blocked kernel; inputs as
-    ``band_attn_blocked_bwd_dq``."""
+    ``band_attn_blocked_bwd_dq``. On the tensor cores for bf16 at Dh 128
+    (every bf16 tensor 16-byte aligned), on the CUDA cores otherwise."""
     name = "band_attn_blocked_bwd_dkv"
     plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
+    dh = dims[-1]
     if plain:
         return band_attn_blocked_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta,
                                                sm_scale, q_offset, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check_tma_aligned(name, (q, k, v, do, dk, dv), dh)
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dk, dv),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dk, dv
@@ -468,7 +489,8 @@ def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
     """B1f, the segmented-KV kernel. q [B, Lq, H·Dh]; S keys/values
     [B, Ls, H·Dh] with s_bias [B, Ls] at positions 0..Ls-1; NS keys/values
     [B, n, H·Dh], all valid, at positions Ls..Ls+n-1 -> out [B, Lq, H·Dh],
-    lse [B, H, Lq] float32."""
+    lse [B, H, Lq] float32. On the tensor cores for bf16 (every bf16 tensor
+    16-byte aligned), on the CUDA cores for float32."""
     name = "band_attn_segkv_fwd"
     b, lq, ls, n, dh = _seg_shapes(name, q, k, v, kns, vns, s_bias, h)
     if _check(name, (q, k, v, kns, vns), (s_bias,), dh):
@@ -476,6 +498,7 @@ def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
                                          q_offset, causal, h)
     _forward_only(name, "fused_mhseg_band_attention", (q, k, v, kns, vns))
     out = torch.empty_like(q)
+    _check_tma_aligned(name, (q, k, v, kns, vns, out), dh)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kns, vns, s_bias, out, lse),
             (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)

@@ -73,7 +73,7 @@ class RankingTrainer:
                 "RankingTrainer: checkpoints (ROADMAP A11) are not ported yet")
         if mesh is not None:
             raise NotImplementedError(
-                "RankingTrainer: multi-device training (ROADMAP slice 5) is not "
+                "RankingTrainer: multi-device training (ROADMAP A17) is not "
                 "ported yet")
         self.device = resolve_device(device, "RankingTrainer")
         self.cfg = cfg

@@ -511,12 +511,14 @@ def test_tma_alignment_check_spares_calls_that_use_no_tma(name, dtype):
 
 
 @pytest.mark.parametrize("name, n_tensors", [("band_attn_mh_bwd", 7),
-                                             ("band_attn_segkv_bwd", 11)])
+                                             ("band_attn_segkv_bwd", 11),
+                                             ("band_attn_blocked_bwd_dkv", 6)])
 def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
-    """The bf16 calls of B1b and B3b at Dh 128 encode a tensor map over every
-    bf16 input and output (q, k, v[, kns, vns], dO, and the gradients), so
-    one unaligned tensor among them is refused; float32 calls and other
-    head widths run the CUDA-core passes, which read no tensor map."""
+    """The bf16 calls of B1b, B3b and B2dkv at Dh 128 encode a tensor map
+    over every bf16 input and output (q, k, v[, kns, vns], dO, and the
+    gradients they compute), so one unaligned tensor among them is refused;
+    float32 calls and other head widths run the CUDA-core passes, which read
+    no tensor map."""
     flat = torch.zeros(4 * 8 * 128 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(4, 8, 128)
     aligned = torch.zeros(4, 8, 128, dtype=torch.bfloat16)
@@ -529,6 +531,25 @@ def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
         tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
                                              flat.float()[1:].view(4, 8, 128)
                                              for t in tensors), 128)
+
+
+@pytest.mark.parametrize("dh", tfa._KERNEL_DH)
+def test_tma_alignment_check_covers_the_segmented_forward(dh):
+    """The bf16 calls of B1f encode a tensor map over q, k, v, kns, vns and
+    out at every head width, so one unaligned tensor among the six is
+    refused; its float32 calls run the CUDA-core kernel and are spared."""
+    name = "band_attn_segkv_fwd"
+    flat = torch.zeros(4 * 8 * dh + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 8, dh)
+    aligned = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
+    for i in range(6):
+        tensors = [aligned] * 6
+        tensors[i] = shifted
+        with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
+            tfa._check_tma_aligned(name, tuple(tensors), dh)
+        tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
+                                             flat.float()[1:].view(4, 8, dh)
+                                             for t in tensors), dh)
 
 
 def test_backward_wrappers_reject_bad_statistics():

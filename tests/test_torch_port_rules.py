@@ -7,13 +7,16 @@
   otherwise, and raise without it;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
-- the bf16 calls of B2f and B3f, and only theirs, reach the tensor-core
-  kernel of ``band_attention_fwd_sm90.cuh``, at every head width the
-  kernels are instantiated for; their float32 calls stay on the CUDA-core
-  kernel;
-- the bf16 calls of B1b and B3b at Dh 128, and only those, reach the
-  tensor-core passes of ``band_attention_bwd_sm90.cuh``; their float32 calls
-  and other head widths stay on the CUDA-core passes.
+- the bf16 calls of B2f, B3f and B1f, and only theirs, reach the
+  tensor-core kernel of ``band_attention_fwd_sm90.cuh``, at every head width
+  the kernels are instantiated for (B1f with its NS segment's maps); their
+  float32 calls stay on the CUDA-core kernel;
+- the bf16 calls of B1b and B3b at Dh 128 reach both tensor-core passes of
+  ``band_attention_bwd_sm90.cuh``, and those of B2dkv at Dh 128 its dkv pass
+  alone, and no other call does; their float32 calls and other head widths
+  stay on the CUDA-core passes;
+- the tensor-core backward encodes the maps of, and launches, only the
+  passes a call names.
 """
 
 import ast
@@ -121,6 +124,19 @@ def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
         RankingTrainer(cfg, device="cpu", mesh=object())
 
 
+def test_trainer_mesh_error_names_its_roadmap_item():
+    """Multi-device training is ROADMAP item A17 (``parallel/`` on
+    ``torch.distributed``); the error says so, and names no slice."""
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+    from __graft_entry__ import _tiny_cfg
+    from tests.test_torch_ranking import port_config
+
+    with pytest.raises(NotImplementedError,
+                       match=r"^RankingTrainer: multi-device training \(ROADMAP A17\) is not "
+                             r"ported yet$"):
+        RankingTrainer(port_config(_tiny_cfg()), device="cpu", mesh=object())
+
+
 def test_cuda_entry_points_match_their_bindings():
     for name, argtypes in tfa._SIGNATURES.items():
         src = (_build.CSRC / f"{tfa.LIBRARY[name]}.cu").read_text()
@@ -172,7 +188,8 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     dispatch = header[header.index("int fwd_bf16("):]
     assert "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)" in dispatch
     # one kernel shape: a 64-row consumer warpgroup and a producer warp
-    assert re.search(r"template <int DH>\s*__global__ void __launch_bounds__\(128 \+ 32, 2\)", header)
+    assert re.search(r"template <int DH, bool SEG>\s*__global__ void "
+                     r"__launch_bounds__\(128 \+ 32, 2\)", header)
     # its wgmma and TMA wrappers come from the header it shares with the
     # tensor-core backward
     assert '#include "band_attention_sm90_common.cuh"' in header
@@ -184,7 +201,7 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     launch = fwd[fwd.index("int launch(const Args& a"):]
     assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, s);" in launch
     assert "band_attn_kernel<T, DH><<<" in fwd
-    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd"):
+    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd", "band_attn_segkv_fwd"):
         body = _entry_body(fwd, name)
         # bf16 returns from the tensor-core kernel before anything else runs;
         # float32 goes through launch() (code 0) and nothing else does
@@ -193,9 +210,45 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
         rest = body[bf16.end():]
         assert "if (dtype != 0) return (int)cudaErrorInvalidValue;" in rest, name
         assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
-    for name in ("band_attn_bh_fwd", "band_attn_segkv_fwd"):
-        body = _entry_body(fwd, name)
-        assert "sm90" not in body and "return launch(a," in body, name
+    body = _entry_body(fwd, "band_attn_bh_fwd")
+    assert "sm90" not in body and "return launch(a," in body
+
+
+def _fwd_bf16_args(body: str):
+    """The arguments of the sm90::fwd_bf16 call in an entry point's body."""
+    call = body[body.index("sm90::fwd_bf16(") + len("sm90::fwd_bf16("):]
+    return [a.strip() for a in call[:call.index(");")].split(",")]
+
+
+def test_the_segmented_forward_passes_its_ns_segment_and_the_others_none():
+    """fwd_bf16 takes (q, k, v, k2, v2, bias, out, lse, B, H, Lq, L1, L2,
+    ...): B1f hands it the NS keys, values and count, so L2 > 0 picks the
+    kernel instance with the second segment (SEG = true) and its two extra
+    tensor maps; B2f and B3f hand it none, and L2 = 0 picks the instance
+    without that code, the kernel they ran before."""
+    header = (_build.CSRC / "band_attention_fwd_sm90.cuh").read_text()
+    fwd = (_build.CSRC / "band_attention.cu").read_text()
+    dispatch = header[header.index("inline int fwd_bf16("):]
+    assert re.search(r"L2 > 0 \? launch<D, true>\([^)]*\)\s*\\?\s*: launch<D, false>\(",
+                     dispatch)
+    launch = header[header.index("cudaError_t launch(const void* q"):]
+    assert "if (SEG && (!encode<DH>(&tk2, k2, width, p.L2, B)" in launch
+    assert re.search(r"band_attn_fwd_sm90_kernel<DH, SEG><<<[^>]*>>>"
+                     r"\(tq, tk, tv, tk2, tv2, to, p\)", launch)
+    # each segment's tiles run in a loop of their own, the NS tiles from the
+    # NS maps tiled from row 0, so the S tiles run the same code in both
+    # instances
+    kernel = header[header.index("band_attn_fwd_sm90_kernel(const"):]
+    assert "for (int t = 0; t < n1; ++t) load_kv(t, &tk, &tv, t * KEYS);" in kernel
+    assert "load_kv(t, &tk2, &tv2, (t - n1) * KEYS);" in kernel
+    assert re.search(r"for \(int t = 0; t < n1; \+\+t\)\s*consume_tile<DH, false>\(", kernel)
+    assert re.search(r"if \(SEG\)\s*for \(int t = n1; t < n_tiles; \+\+t\) \{[^}]*"
+                     r"consume_tile<DH, true>\(sm, t, key0, p\.L2, p\.Lkv \+ key0,", kernel)
+    seg = _fwd_bf16_args(_entry_body(fwd, "band_attn_segkv_fwd"))
+    assert seg[3:5] == ["kns", "vns"] and seg[11:13] == ["ls", "n"], seg
+    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd"):
+        args = _fwd_bf16_args(_entry_body(fwd, name))
+        assert args[3:5] == ["nullptr", "nullptr"] and args[12] == "0", (name, args)
 
 
 def test_chip_smoke_holds_the_bf16_blocked_forward_at_every_head_width():
@@ -210,6 +263,50 @@ def test_chip_smoke_holds_the_bf16_blocked_forward_at_every_head_width():
         "ptxas info : Compiling entry function "
         "'_ZN9band_attn4sm9025band_attn_fwd_sm90_kernelILi48EEEvN8CUtensorMapE' for 'sm_90a'")
     assert label == "band_attn_fwd_sm90_kernel<48>"
+    # the instances with and without the second key segment read apart
+    for seg, word in (("1", "true"), ("0", "false")):
+        label = chip_smoke.ptxas_label(
+            "ptxas info : Compiling entry function '_ZN9band_attn4sm9025band_attn_fwd_sm90_"
+            f"kernelILi128ELb{seg}EEEvN8CUtensorMapES2_S2_S2_S2_S2_NS0_6ParamsE' for 'sm_90a'")
+        assert label == f"band_attn_fwd_sm90_kernel<128, {word}>"
+
+
+def test_chip_smoke_holds_the_bf16_segmented_forward_at_its_edges():
+    """B1f's tensor-core route tiles the NS segment on its own: the card
+    check reaches each edge of that tiling (the segmented edge shapes of
+    B1b), and the NS tile at a 64- and a 16-column chunk (Dh 64 and 48)."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.KERNELS)["band_attn_segkv_fwd"]
+    # the JSON line's first shape stays the main path's heaviest: serving
+    # phase B's batch forward, layer 1
+    assert shapes[0] == dict(b=128, h=2, lq=364, ls=595, n=12, dh=128)
+    assert all(s["n"] == 12 for s in shapes)
+    assert any(s["lq"] < 64 for s in shapes)
+    assert any(s["ls"] % 64 for s in shapes)
+    assert any(s.get("padded_row") and s["b"] > 1 for s in shapes)
+    assert any(not s.get("causal", True) for s in shapes)
+    assert {64, 48} <= {s["dh"] for s in shapes}
+    assert chip_smoke.SOURCE["band_attn_segkv_fwd"].endswith("band_attention_fwd_sm90.cuh")
+
+
+def test_chip_smoke_holds_the_bf16_blocked_dkv_pass_at_its_edges():
+    """B2dkv runs the tensor-core dkv pass at H = 1 and n = 0, Dh 128: the
+    card check reaches Lq < 64, Lkv % 64 != 0 past 1024 keys, a fully padded
+    row (make_inputs pads row 0 when n = 0) and the band off, in bf16 and
+    f32 alike."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.BWD_KERNELS)["band_attn_blocked_bwd_dkv"]
+    assert shapes[0] == dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128)
+    edges = shapes[1:]
+    assert all(s["h"] == 1 and s["n"] == 0 and s["dh"] == 128 and s["b"] > 1 for s in edges)
+    assert any(s["lq"] < 64 for s in edges)
+    assert any(s["ls"] % 64 and s["ls"] > 1024 for s in edges)
+    assert any(not s.get("causal", True) for s in edges)
+    assert chip_smoke.SOURCE["band_attn_blocked_bwd_dkv"].endswith("band_attention_bwd_sm90.cuh")
+    # B2dq stays on the CUDA cores
+    assert chip_smoke.SOURCE["band_attn_blocked_bwd_dq"].endswith("band_attention_bwd.cu")
 
 
 def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes():
@@ -231,21 +328,67 @@ def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes
     assert "constexpr int DKV_WARPGROUPS = 2;" in header
     # the dispatch refuses every width but 128
     assert "if (dh != 128 ||" in header[header.index("int bwd_bf16("):]
-    for name in ("band_attn_segkv_bwd", "band_attn_mh_bwd"):
+    for name, passes in (("band_attn_segkv_bwd", "DQ | DKV"), ("band_attn_mh_bwd", "DQ | DKV"),
+                         ("band_attn_blocked_bwd_dkv", "DKV")):
         body = _entry_body(bwd, name)
         # bf16 at Dh 128 returns from the tensor-core passes before anything
         # else runs; float32 and the other widths go through launch()
         route = re.search(r"if \(dtype == 1 && dh == 128\)[^;]*?return sm90::bwd_bf16\(", body)
         assert route and route.start() == body.index("if ("), name
-        rest = body[route.end():].split(";", 1)[1]
+        call, rest = body[route.end():].split(";", 1)
+        # the passes it names: both, or B2dkv's dkv pass alone
+        assert re.search(rf",\s*{re.escape(passes)}, stream\)$", call), (name, call)
         assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
-    for name in ("band_attn_blocked_bwd_dq", "band_attn_blocked_bwd_dkv", "band_attn_bh_bwd"):
+    # B2dkv's bf16 call is [BH, L, Dh] as H = 1 with no dq tensor and no NS
+    dkv_call = _entry_body(bwd, "band_attn_blocked_bwd_dkv")
+    args = [a.strip() for a in dkv_call[dkv_call.index("bwd_bf16(") + 9:].split(")")[0].split(",")]
+    assert args[9:16] == ["nullptr", "dk", "dv", "nullptr", "nullptr", "bh", "1"], args
+    for name in ("band_attn_blocked_bwd_dq", "band_attn_bh_bwd"):
         body = _entry_body(bwd, name)
         assert "sm90" not in body and "return launch(a," in body, name
     # launch() keeps both dtypes on the CUDA-core passes
     launch = bwd[bwd.index("int launch(const BwdArgs& a"):]
     assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);" in launch
     assert "if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, passes, s);" in launch
+
+
+def _block_after(src: str, opener: str) -> str:
+    """The brace-balanced block that follows ``opener`` in ``src``."""
+    start = src.index("{", src.index(opener))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"{opener}: unbalanced block")
+
+
+def test_the_tensor_core_backward_encodes_and_launches_only_the_named_passes():
+    """launch_bwd encodes the maps both passes read (Q, dO, K, V and the NS
+    segment's) for every call, each pass's outputs only when the call names
+    that pass, and launches only the named passes; bwd_bf16 refuses an empty
+    or unknown mask. One Pass enum serves both bodies."""
+    header = (_build.CSRC / "band_attention_bwd_sm90.cuh").read_text()
+    bwd = (_build.CSRC / "band_attention_bwd.cu").read_text()
+    assert header.count("enum Pass { DQ = 1, DKV = 2 };") == 1 and "enum Pass" not in bwd
+    launch = _block_after(header, "cudaError_t launch_bwd(")
+    assert "int passes" in header[header.index("cudaError_t launch_bwd("):][:400]
+    assert re.search(r"if \(\(passes & DQ\) && !encode<DH>\(&m\.dq, dq,", launch)
+    dkv_maps = launch[launch.index("if ((passes & DKV) &&"):]
+    dkv_maps = dkv_maps[:dkv_maps.index("return cudaErrorInvalidValue;")]
+    for out in ("dk", "dv", "dk2", "dv2"):
+        assert f"encode<DH>(&m.{out}, {out}," in dkv_maps, out
+    # every output map is encoded under its pass's test and nowhere else
+    for out in ("dq", "dk", "dv", "dk2", "dv2"):
+        assert launch.count(f"&m.{out},") == 1, out
+    dq_block = _block_after(launch, "if (passes & DQ) {")
+    dkv_block = _block_after(launch, "if (passes & DKV) {")
+    assert "band_attn_bwd_dq_sm90_kernel<DH><<<" in dq_block
+    assert "band_attn_bwd_dkv_sm90_kernel<DH>" in dkv_block and "<<<" in dkv_block
+    assert launch.count("<<<") == 2
+    dispatch = header[header.index("inline int bwd_bf16("):]
+    assert "passes <= 0 || (passes & ~(DQ | DKV))" in dispatch
+    assert "p, B, passes," in dispatch
 
 
 def test_chip_smoke_holds_the_tensor_core_backwards_at_their_edges():

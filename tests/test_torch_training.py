@@ -317,6 +317,74 @@ def test_trainer_steps_match_jax_trainer(embed_dim, num_heads, mode, route, monk
         np.testing.assert_allclose(tv[k], jv[k], atol=1e-5, err_msg=k)
 
 
+def test_keyless_rows_change_no_logit_and_no_gradient(monkeypatch):
+    """On a query row with no valid key (a padded S position that sees no
+    valid S key and no NS key) the kernels and the plain versions give
+    different attention outputs (``band_attn_segkv_fwd_plain``'s note). The
+    model never reads those rows: with the attention output of every such
+    row set to arbitrary values, one ``RankingTrainer`` step on a batch whose
+    first row has an empty history gives the same logits, the same
+    gradients and the same new state, bit for bit. Layer 0 keeps every
+    query (pyramid ratio 1.0), so the keyless rows reach the segmented
+    kernel's route (its plain version on the CPU)."""
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.models.ranking import MixedBlock
+
+    cfg = port_config(dataclasses.replace(_trainer_cfg(128, 1, "rowwise"),
+                                          pyramid_ratios=(1.0, 0.5)))
+    data = tsynthetic.make_ranking_data(cfg, num_samples=8, max_seq_per_feature=48, seed=0)
+    batch = next(tpipeline.ranking_batches(data, cfg, batch_size=4, num_epochs=1))
+    batch["seq_valid"] = {k: np.array(v) for k, v in batch["seq_valid"].items()}
+    for v in batch["seq_valid"].values():
+        v[0] = False  # row 0: an empty history
+    params = init_params(cfg, seed=0, device="cpu")
+    attend = MixedBlock._attend_mixed
+    keyless_rows = []
+
+    def perturbed(self, q, k_s, v_s, s_valid, k_ns, v_ns, q_offset):
+        out = attend(self, q, k_s, v_s, s_valid, k_ns, v_ns, q_offset)
+        ls = s_valid.shape[1]
+        pos = q_offset + torch.arange(q.shape[1])
+        seen = s_valid.cumsum(1) > 0  # a valid S key at or before each position
+        keyless = (pos < ls)[None] & ~seen[:, pos.clamp(max=ls - 1)]
+        if q.shape[1] >= 64:
+            keyless_rows.append(int(keyless.sum()))
+        noise = np.random.default_rng(len(keyless_rows)).normal(0.0, 100.0, out.shape)
+        return torch.where(keyless[:, :, None, None], torch.from_numpy(noise).to(out.dtype), out)
+
+    def step(perturb: bool):
+        trainer = RankingTrainer(cfg, device="cpu")
+        state = trainer.init_state(params)
+        seen = {}
+        logits, grad = trainer._logits, torch.autograd.grad
+        trainer._logits = lambda *a, **k: seen.setdefault("logits", logits(*a, **k))
+        with monkeypatch.context() as m:
+            m.setattr(torch.autograd, "grad",
+                      lambda *a, **k: seen.setdefault("grads", grad(*a, **k)))
+            plain = tfa.band_attn_segkv_fwd_plain
+            m.setattr(tfa, "band_attn_segkv_fwd_plain",
+                      lambda *a: seen.setdefault("kernel_route", True) and plain(*a))
+            if perturb:
+                m.setattr(MixedBlock, "_attend_mixed", perturbed)
+            state, metrics = trainer._train_step(state, trainer._put_batch(batch))
+        assert seen.get("kernel_route")
+        return seen, state, metrics
+
+    base, base_state, base_metrics = step(False)
+    got, state, metrics = step(True)
+    # the first layer's kernel call has keyless rows: row 0's first sequence
+    assert keyless_rows and keyless_rows[0] >= 48
+    for t in base["logits"]:
+        assert torch.equal(got["logits"][t], base["logits"][t]), t
+    assert len(got["grads"]) == len(base["grads"])
+    for g, b in zip(got["grads"], base["grads"]):
+        assert (g is None) == (b is None) and (g is None or torch.equal(g, b))
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(metrics[k], base_metrics[k]), k
+    for k, v in base_state.params.items():
+        assert torch.equal(state.params[k], v), k
+
+
 def test_train_loop_history_and_best_params():
     cfg = port_config(dataclasses.replace(_trainer_cfg(64, 2, "rowwise"),
                                           use_flash_attention=False))
