@@ -19,8 +19,9 @@ Phases, in order; any failure raises and exits non-zero:
    with CUDA events, beside the kernel's bound; then the same for the five
    backward kernels at the training shapes (B3b at the S-trunk gradient's
    shapes), against their plain backward and SDPA's backward (the bf16
-   B1b and B3b calls at Dh 128 run both tensor-core passes and B2dkv's its
-   dkv pass, also at small shapes that reach each edge of their tiling);
+   calls run the tensor-core passes: B1b, B3b and B4b both, B2dq and B2dkv
+   one each; also at small shapes that reach each edge of their tiling,
+   B2dq and B2dkv at Dh 64 and 96 as well, and B4b at every Dh);
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -107,9 +108,9 @@ F32_STEP_TABLE_TOL = 1e-4
 # The same in bf16 (loss and dense gradient norm of phases TA/TB/TC, phase
 # SG's gradient norm), where the tensor-core backwards sum in another order
 # than the plain backward and every eager op rounds. Measured on the H100:
-# loss <= 2.3e-4, grad norm <= 4.8e-4, SG 8.6e-5; TC, which runs no
-# tensor-core backward, reads as much as TA, so most of the gap is the
-# bf16 rounding of the two paths' forwards. The limits leave about 4x.
+# loss <= 2.3e-4, grad norm <= 4.8e-4, SG 8.6e-5; TC read as much as TA
+# while it ran no tensor-core backward, so most of the gap is the bf16
+# rounding of the two paths' forwards. The limits leave about 4x.
 BF16_STEP_LOSS_TOL = 2e-3
 BF16_STEP_NORM_TOL = 2e-3
 CARD = ""
@@ -182,9 +183,9 @@ SOURCE = {"band_attn_blocked_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_segkv_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_segkv_bwd": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_mh_bwd": CSRC + "band_attention_bwd_sm90.cuh",
-          "band_attn_blocked_bwd_dq": CSRC + "band_attention_bwd.cu",
+          "band_attn_blocked_bwd_dq": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_blocked_bwd_dkv": CSRC + "band_attention_bwd_sm90.cuh",
-          "band_attn_bh_bwd": CSRC + "band_attention_bwd.cu"}
+          "band_attn_bh_bwd": CSRC + "band_attention_bwd_sm90.cuh"}
 
 
 def log(msg: str) -> None:
@@ -360,6 +361,20 @@ def check_kernels(fa, kernels):
     return entries
 
 
+# B2dq and B2dkv, the two halves of the blocked backward: phase TB's layer
+# 0 (batch 128 x 2 heads), then the edges of the tensor-core passes at kv >
+# 1024 (Lkv % 64 != 0, the last key tile zero-filled): Lq < 64, a partial
+# last query tile, the band off, row 0 of each fully padded (n = 0); then
+# the other widths that reach them at kv > 1024, Dh 64 (4 heads at d 256)
+# and ranking_base's Dh 96
+BLOCKED_BWD_SHAPES = [
+    dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
+    dict(b=3, h=1, lq=40, ls=1100, n=0, dh=128),
+    dict(b=3, h=1, lq=555, ls=1100, n=0, dh=128),
+    dict(b=2, h=1, lq=300, ls=1100, n=0, dh=128, causal=False),
+    dict(b=128, h=1, lq=607, ls=1214, n=0, dh=64),
+    dict(b=128, h=1, lq=607, ls=1214, n=0, dh=96),
+]
 # (name, JAX kernel body it replaces, training shapes; the first one is
 # reported in the JSON line), checked against the plain backward
 BWD_KERNELS = [
@@ -368,23 +383,22 @@ BWD_KERNELS = [
         dict(b=512, h=2, lq=181, ls=350, n=12, dh=128),
         *(s for s in EDGE_SHAPES if s["n"]),
     ]),
-    ("band_attn_blocked_bwd_dq", "recommend_tpu/ops/pallas/flash_attention.py:102", [
-        # phase TB layer 0 (batch 128 x 2 heads)
-        dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
-    ]),
-    ("band_attn_blocked_bwd_dkv", "recommend_tpu/ops/pallas/flash_attention.py:142", [
-        dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128),
-        # the edges of the tensor-core dkv pass at kv > 1024 (Lkv % 64 != 0,
-        # the last key tile zero-filled): Lq < 64, a partial last query
-        # tile, the band off; row 0 of each is fully padded (n = 0)
-        dict(b=3, h=1, lq=40, ls=1100, n=0, dh=128),
-        dict(b=3, h=1, lq=555, ls=1100, n=0, dh=128),
-        dict(b=2, h=1, lq=300, ls=1100, n=0, dh=128, causal=False),
-    ]),
+    ("band_attn_blocked_bwd_dq", "recommend_tpu/ops/pallas/flash_attention.py:102",
+     BLOCKED_BWD_SHAPES),
+    ("band_attn_blocked_bwd_dkv", "recommend_tpu/ops/pallas/flash_attention.py:142",
+     BLOCKED_BWD_SHAPES),
     ("band_attn_bh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:420", [
         # phase TC layer 0 (batch 512 x 4 heads), then ranking_base's Dh 96
         dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64),
         dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
+        # the edges of the tensor-core passes (Lq < 64, Lkv % 64 != 0, row 0
+        # fully padded, the band off), then every other width of _KERNEL_DH,
+        # which the passes tile otherwise: Dh 32 as one 32-column chunk, Dh
+        # 16, 48, 80 and 112 as 16-column chunks (m64n16k16 products from
+        # registers), Dh 128 as two 64-column chunks
+        dict(b=3, h=1, lq=40, ls=100, n=0, dh=64),
+        dict(b=2, h=1, lq=70, ls=130, n=0, dh=64, causal=False),
+        *(dict(b=64, h=1, lq=181, ls=362, n=0, dh=dh) for dh in (16, 32, 48, 80, 112, 128)),
     ]),
     # phase SG's shapes, put first by main, then the edges. Dh 128 only: the
     # dispatcher sends model-layout attention here only when Dh % 128 == 0
@@ -478,11 +492,11 @@ def check_backward_kernels(fa, kernels):
     """Each backward kernel against its plain backward at the training
     shapes, in bf16 (about one ulp: 1e-2 of each output's max|ref|) and f32
     (1e-4 of max|ref|), with its time, the plain and SDPA-backward times and
-    its bound. The CUDA-core passes (f32, and bf16 but for B1b, B3b and
-    B2dkv) accumulate over keys in the plain version's order at its
-    rounding points and read no difference at all on the H100; the
-    tensor-core passes (bf16 B1b, B3b and B2dkv) round at the same points
-    but sum in another order, and read about one bf16 ulp of the largest
+    its bound (B4b's first shape also with each of its passes alone). The
+    CUDA-core passes (f32) accumulate over keys in the plain version's order
+    at its rounding points and read no difference at all on the H100; the
+    tensor-core passes (every bf16 call) round at the same points but sum
+    in another order, and read about one bf16 ulp of the largest
     gradient."""
     import torch
 
@@ -513,8 +527,16 @@ def check_backward_kernels(fa, kernels):
                 t_ops, t_bytes = flops / PEAK_FLOPS[dn], nbytes / PEAK_BYTES
                 b_ms = max(t_ops, t_bytes) * 1e3
                 b_by = "operations" if t_ops >= t_bytes else "bytes"
+                passes = ""
+                if name == "band_attn_bh_bwd" and i == 0:
+                    # B4b's two passes alone, through the B2dq and B2dkv entry
+                    # points: the same launches on the same inputs
+                    passes = ", ".join(
+                        f"{label} pass {cuda_ms(lambda: bwd_call(half, t, shape, fa), 10):.4f} ms"
+                        for label, half in (("dq", "band_attn_blocked_bwd_dq"),
+                                            ("dkv", "band_attn_blocked_bwd_dkv"))) + ", "
                 log(f"kernel {name} {dn} {shape}: max rel err {rel:.3g} | {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
+                    f"{passes}plain {plain_ms:.4f} ms, sdpa bwd {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by}) [{CARD}]")
                 if i == 0 and dtype == torch.bfloat16:
                     entries[name] = {

@@ -42,15 +42,17 @@
 // hundred keys, hundreds of batch rows) the work is five matrix products,
 // 10 * Dh flops per (row, key) pair in the band (the dq and dkv passes
 // recompute s and dp, 14 * Dh together), against (3 Lq + 3 Lkv) * Dh
-// elements moved. The bf16 calls of band_attn_segkv_bwd and band_attn_mh_bwd
-// at Dh 128 (B1b and B3b on the main path) run the same two passes on the
-// tensor cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives
-// their design), and those of band_attn_blocked_bwd_dkv at Dh 128 (B2dkv)
-// its dkv pass alone. Every other call, float32 (a full-float32 tensor-core
-// product does not exist, and TF32 would miss the float32 checks), other
-// head widths, B2dq and B4b, runs the passes below as float32 FMAs on the
-// CUDA cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv) of shared
-// memory at Dh 128, one block per SM.
+// elements moved. The bf16 calls run the same two passes on the tensor
+// cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives their
+// design): those of band_attn_bh_bwd (B4b) both passes and those of
+// band_attn_blocked_bwd_dq (B2dq) and band_attn_blocked_bwd_dkv (B2dkv) one
+// pass each, at every head width; those of band_attn_segkv_bwd and
+// band_attn_mh_bwd (B1b and B3b) both passes at Dh 128, the only width the
+// dispatchers send them. Every other call, float32 (a full-float32
+// tensor-core product does not exist, and TF32 would miss the float32
+// checks) and B1b/B3b at other widths, runs the passes below as float32
+// FMAs on the CUDA cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv)
+// of shared memory at Dh 128, one block per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -499,27 +501,31 @@ BwdArgs bh_args(const void* q, const void* k, const void* v, const float* bias,
 
 extern "C" {
 
-// B2dq: dQ of the blocked band attention over [BH, L, Dh]
+// B2dq: dQ of the blocked band attention over [BH, L, Dh]. bf16 runs the
+// tensor-core dq pass alone, float32 the CUDA-core one.
 int band_attn_blocked_bwd_dq(const void* q, const void* k, const void* v,
                              const float* bias, const void* dout,
                              const float* lse, const float* delta, void* dq,
                              int bh, int lq, int lkv, int dh, int q_offset,
                              int causal, float sm_scale, int dtype, void* stream) {
+  if (dtype == 1)  // bf16: the tensor-core dq pass, H = 1
+    return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, nullptr,
+                          nullptr, nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal,
+                          sm_scale, DQ, stream);
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, nullptr, nullptr,
                       lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, bh, dh, dtype, DQ, stream);
 }
 
-// B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]. bf16 at
-// Dh 128 runs the tensor-core dkv pass alone, everything else the CUDA-core
-// one.
+// B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]. bf16 runs
+// the tensor-core dkv pass alone, float32 the CUDA-core one.
 int band_attn_blocked_bwd_dkv(const void* q, const void* k, const void* v,
                               const float* bias, const void* dout,
                               const float* lse, const float* delta, void* dk,
                               void* dv, int bh, int lq, int lkv, int dh,
                               int q_offset, int causal, float sm_scale,
                               int dtype, void* stream) {
-  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core dkv pass, H = 1
+  if (dtype == 1)  // bf16: the tensor-core dkv pass, H = 1
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, nullptr, dk, dv,
                           nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal, sm_scale,
                           DKV, stream);
@@ -528,12 +534,17 @@ int band_attn_blocked_bwd_dkv(const void* q, const void* k, const void* v,
   return launch(a, bh, dh, dtype, DKV, stream);
 }
 
-// B4b: dQ, dK and dV of the whole-tile band attention over [BH, L, Dh]
+// B4b: dQ, dK and dV of the whole-tile band attention over [BH, L, Dh]. bf16
+// runs both tensor-core passes, float32 the CUDA-core ones.
 int band_attn_bh_bwd(const void* q, const void* k, const void* v,
                      const float* bias, const void* dout, const float* lse,
                      const float* delta, void* dq, void* dk, void* dv, int bh,
                      int lq, int lkv, int dh, int q_offset, int causal,
                      float sm_scale, int dtype, void* stream) {
+  if (dtype == 1)  // bf16: both tensor-core passes, H = 1
+    return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, dk, dv,
+                          nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal, sm_scale,
+                          DQ | DKV, stream);
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, dk, dv,
                       lq, lkv, dh, q_offset, causal, sm_scale);
   return launch(a, bh, dh, dtype, DQ | DKV, stream);

@@ -1,12 +1,21 @@
 // Band-masked attention backward on Hopper's tensor cores, bf16 (sm_90a).
 //
-// Serves the bfloat16 calls at Dh 128 of three entry points of
-// band_attention_bwd.cu:
+// Serves the bfloat16 calls of five entry points of band_attention_bwd.cu:
 //
-//   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel :912 (B1b, both passes)
-//   band_attn_mh_bwd           replaces _fmh_bwd_kernel    :654 (B3b, both passes)
+//   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel :912 (B1b, both passes,
+//                                                          Dh 128)
+//   band_attn_mh_bwd           replaces _fmh_bwd_kernel    :654 (B3b, both passes,
+//                                                          Dh 128)
+//   band_attn_bh_bwd           replaces _fused_bwd_kernel  :420 (B4b, both passes,
+//                                                          [BH, L, Dh])
+//   band_attn_blocked_bwd_dq   replaces _dq_kernel         :102 (B2dq, the dq pass
+//                                                          alone, [BH, L, Dh])
 //   band_attn_blocked_bwd_dkv  replaces _dkv_kernel        :142 (B2dkv, the dkv
 //                                                          pass alone, [BH, L, Dh])
+//
+// B4b, B2dq and B2dkv take every head width of BAND_ATTN_FOR_EACH_DH (the
+// dispatchers send B4b every width that is not a multiple of 128); B1b and
+// B3b only Dh 128, the only width the dispatchers send them.
 //
 // of recommend_tpu/ops/pallas/flash_attention.py. It computes what they do
 // (band_attention_bwd.cu's note): for query row r and key j, s is formed as
@@ -21,19 +30,21 @@
 // above the band; the model's dO on such rows is 0. B1b
 // has two key segments: S (L1 keys at positions 0..L1-1, with the bias) and
 // NS (L2 keys at L1..L1+L2-1, all valid, no bias), whose gradients go to
-// their own tensors; B3b is the same with L2 = 0, and B2dkv is B3b's dkv
-// pass in the [BH, L, Dh] layout (H = 1, one row of bias, lse and delta per
-// batch-head row).
+// their own tensors; B3b is the same with L2 = 0, and B4b is B3b in the
+// [BH, L, Dh] layout (H = 1, one row of bias, lse and delta per batch-head
+// row), B2dq and B2dkv its dq and its dkv pass alone.
 //
 // What bounds it on the H100: B1b at phase TA's layer 0 (512 x 2 heads, 181
 // query rows, 350 + 12 keys, Dh 128) does 10 * Dh flops per in-band (row,
 // key) pair, 64.5 GFLOP (0.065 ms at 989 TF/s), against 524 MB moved (0.157
 // ms at 3.35 TB/s): bound by bytes. The two passes below recompute S and dP,
 // 14 * Dh flops a pair, so the tensor cores must run at about 60% of their
-// peak for the bytes to be the limit. B2dkv at phase TB's layer 0 (256
-// batch-head rows, 607 query rows, 1214 keys, Dh 128) does 8 * Dh flops per
-// in-band pair (S^T, dP^T, dV and dK), 145 GFLOP against 400 MB: bound by
-// operations (0.147 ms).
+// peak for the bytes to be the limit. B4b at phase TC's layer 0 (2048
+// batch-head rows, 181 query rows, 362 keys, Dh 64) is bound by bytes too
+// (0.158 ms). B2dkv at phase TB's layer 0 (256 batch-head rows, 607 query
+// rows, 1214 keys, Dh 128) does 8 * Dh flops per in-band pair (S^T, dP^T,
+// dV and dK), 145 GFLOP against 400 MB: bound by operations (0.147 ms); B2dq
+// there 6 * Dh (S, dP and dQ), 109 GFLOP (0.110 ms).
 //
 // What the design does about it:
 // - two passes, no atomics on the outputs (deterministic), as the CUDA-core
@@ -48,7 +59,11 @@
 //   MN-major through the descriptor's transpose. dkv pass: S^T = K Q^T and
 //   dP^T = V dO^T K-major; dV += P^T dO and dK += dS^T Q from registers,
 //   with dO and Q MN-major;
-// - tiles come by TMA from 3-D tensor maps over [B, L, H*Dh]. Each segment
+// - tiles come by TMA from 3-D tensor maps over [B, L, H*Dh], 64 rows by a
+//   chunk of 64, 32 or 16 columns (the widest that divides Dh; Tile<DH>), as
+//   the forward tiles them: the MN-major operands (K in dQ, dO in dV, Q in
+//   dK) span one chunk in N, so their products are m64n64k16, m64n32k16 or
+//   m64n16k16, one per chunk and k16 step. Each segment
 //   has its own maps and is tiled from its own row 0, so a key tile never
 //   straddles the seam: the last S tile and the NS tile are zero-filled
 //   past their segment's rows, whose keys get bias -inf, so p = 0 and
@@ -82,8 +97,7 @@
 //   padded row s and lse both round to -1e9 and p = 1, as there.
 // Not yet: overlapping one tile's elementwise work with the next tile's
 // products within a warpgroup, a persistent grid (a dkv block's loads and
-// stores are not overlapped by another block's work), widths other than
-// Dh 128 (the dispatchers send B1b and B3b only Dh % 128 == 0).
+// stores are not overlapped by another block's work).
 
 #pragma once
 
@@ -630,24 +644,32 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaSuccess;
 }
 
-// The bf16 backward at Dh 128 over q/dO/dq [B, Lq, H*Dh], the first key
-// segment k/v/dk/dv [B, L1, H*Dh] with its bias [B, L1], the second
-// k2/v2/dk2/dv2 [B, L2, H*Dh] (null when L2 = 0), lse and delta [B, H, Lq]
-// (every bf16 tensor 16-byte aligned). `passes` (DQ, DKV or both) names the
-// passes to run; the outputs of a pass that does not run may be null.
-// Returns the first launch's CUDA error, or cudaErrorInvalidValue for a
-// shape it does not take or a tensor map that does not encode.
+// The bf16 backward over q/dO/dq [B, Lq, H*Dh], the first key segment
+// k/v/dk/dv [B, L1, H*Dh] with its bias [B, L1], the second k2/v2/dk2/dv2
+// [B, L2, H*Dh] (null when L2 = 0), lse and delta [B, H, Lq] (every bf16
+// tensor 16-byte aligned), at every head width of BAND_ATTN_FOR_EACH_DH.
+// `passes` (DQ, DKV or both) names the passes to run; the outputs of a pass
+// that does not run may be null. Returns the first launch's CUDA error, or
+// cudaErrorInvalidValue for a shape or width it does not take or a tensor
+// map that does not encode.
 inline int bwd_bf16(const void* q, const void* k, const void* v, const void* k2, const void* v2,
                     const float* bias, const void* dout, const float* lse, const float* delta,
                     void* dq, void* dk, void* dv, void* dk2, void* dv2, int B, int H, int Lq,
                     int L1, int L2, int dh, int q_offset, int causal, float sm_scale, int passes,
                     void* stream) {
-  if (dh != 128 || B <= 0 || H <= 0 || Lq <= 0 || L1 <= 0 || L2 < 0 || B > 65535 || H > 65535 ||
+  if (B <= 0 || H <= 0 || Lq <= 0 || L1 <= 0 || L2 < 0 || B > 65535 || H > 65535 ||
       passes <= 0 || (passes & ~(DQ | DKV)))
     return (int)cudaErrorInvalidValue;
   const BwdParams p{bias, lse, delta, H, Lq, L1, L2, q_offset, causal, sm_scale};
-  return (int)launch_bwd<128>(q, k, v, k2, v2, dout, dq, dk, dv, dk2, dv2, p, B, passes,
-                              static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BAND_ATTN_SM90_CASE(D) \
+  case D:                      \
+    return (int)launch_bwd<D>(q, k, v, k2, v2, dout, dq, dk, dv, dk2, dv2, p, B, passes, s);
+  switch (dh) {
+    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BAND_ATTN_SM90_CASE
 }
 
 }  // namespace sm90

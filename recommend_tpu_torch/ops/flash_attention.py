@@ -13,10 +13,12 @@ Each of its Pallas kernels, forward and backward, has here
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
   ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
   ``band_attn_segkv_bwd``, returning the input gradients; the bf16 calls of
-  ``band_attn_mh_bwd``, ``band_attn_segkv_bwd`` and
-  ``band_attn_blocked_bwd_dkv`` at Dh 128 run the tensor-core passes of
-  ``csrc/band_attention_bwd_sm90.cuh`` (the last its dkv pass alone), every
-  other backward call the CUDA-core passes);
+  ``band_attn_bh_bwd``, ``band_attn_blocked_bwd_dq`` and
+  ``band_attn_blocked_bwd_dkv`` at every head width, and those of
+  ``band_attn_mh_bwd`` and ``band_attn_segkv_bwd`` at Dh 128, run the
+  tensor-core passes of ``csrc/band_attention_bwd_sm90.cuh`` (B2dq its dq
+  pass alone, B2dkv its dkv pass alone), every other backward call the
+  CUDA-core passes);
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
 - a launch count in ``LAUNCHES``, raised by one at each entry-point call.
@@ -282,17 +284,18 @@ def _check(name: str, same, f32, dh: int) -> bool:
 # with the head widths at which they do
 _TMA_ROUTES = {"band_attn_blocked_fwd": _KERNEL_DH, "band_attn_mh_fwd": _KERNEL_DH,
                "band_attn_segkv_fwd": _KERNEL_DH, "band_attn_mh_bwd": (128,),
-               "band_attn_segkv_bwd": (128,), "band_attn_blocked_bwd_dkv": (128,)}
+               "band_attn_segkv_bwd": (128,), "band_attn_blocked_bwd_dq": _KERNEL_DH,
+               "band_attn_blocked_bwd_dkv": _KERNEL_DH, "band_attn_bh_bwd": _KERNEL_DH}
 
 
 def _check_tma_aligned(name: str, tensors, dh: int) -> None:
-    """The bf16 calls of B2f, B3f and B1f, and those of B1b, B3b and B2dkv
-    at Dh 128, and only those, read and write their tiles through TMA
-    tensor maps, whose base addresses must be 16-byte aligned (row strides,
-    H·Dh·2 bytes, are multiples of 16 for every Dh in ``_KERNEL_DH``).
-    ``tensors`` are the ones a map is encoded over: the bf16 inputs and
-    outputs. Other calls run the CUDA-core kernels, which need no
-    alignment."""
+    """The bf16 calls of B2f, B3f, B1f, B4b, B2dq and B2dkv, and those of
+    B1b and B3b at Dh 128, and only those, read and write their tiles
+    through TMA tensor maps, whose base addresses must be 16-byte aligned
+    (row strides, H·Dh·2 bytes, are multiples of 16 for every Dh in
+    ``_KERNEL_DH``). ``tensors`` are the ones a map is encoded over: the
+    bf16 inputs and outputs. Other calls run the CUDA-core kernels, which
+    need no alignment."""
     if dh not in _TMA_ROUTES.get(name, ()) or tensors[0].dtype != torch.bfloat16:
         return
     bad = [i for i, t in enumerate(tensors) if t.data_ptr() % 16]
@@ -382,13 +385,15 @@ def band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
                              q_offset: int, causal: bool = True):
     """B2dq: dq of the blocked kernel. Forward inputs as
     ``band_attn_blocked_fwd``, do [BH, Lq, Dh] in q's dtype, lse and delta
-    [BH, Lq] float32 -> dq [BH, Lq, Dh]."""
+    [BH, Lq] float32 -> dq [BH, Lq, Dh]. On the tensor cores for bf16
+    (every bf16 tensor 16-byte aligned), on the CUDA cores for float32."""
     name = "band_attn_blocked_bwd_dq"
     plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
     if plain:
         return band_attn_blocked_bwd_dq_plain(q, k, v, kv_bias, do, lse, delta,
                                               sm_scale, q_offset, causal)
     dq = torch.empty_like(q)
+    _check_tma_aligned(name, (q, k, v, do, dq), dims[-1])
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dq
@@ -397,16 +402,15 @@ def band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
 def band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
                               q_offset: int, causal: bool = True):
     """B2dkv: (dk, dv) of the blocked kernel; inputs as
-    ``band_attn_blocked_bwd_dq``. On the tensor cores for bf16 at Dh 128
-    (every bf16 tensor 16-byte aligned), on the CUDA cores otherwise."""
+    ``band_attn_blocked_bwd_dq``, and as there on the tensor cores for
+    bf16 and on the CUDA cores for float32."""
     name = "band_attn_blocked_bwd_dkv"
     plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
-    dh = dims[-1]
     if plain:
         return band_attn_blocked_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta,
                                                sm_scale, q_offset, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check_tma_aligned(name, (q, k, v, do, dk, dv), dh)
+    _check_tma_aligned(name, (q, k, v, do, dk, dv), dims[-1])
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dk, dv),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dk, dv
@@ -415,13 +419,15 @@ def band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
 def band_attn_bh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
                      q_offset: int, causal: bool = True):
     """B4b: (dq, dk, dv) of the whole-tile [BH, L, Dh] kernel; inputs as
-    ``band_attn_blocked_bwd_dq``. One call runs the dq and the dkv pass."""
+    ``band_attn_blocked_bwd_dq``. One call runs the dq and the dkv pass, as
+    there on the tensor cores for bf16 and on the CUDA cores for float32."""
     name = "band_attn_bh_bwd"
     plain, dims = _bh_bwd(name, q, k, v, kv_bias, do, lse, delta)
     if plain:
         return band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
                                       sm_scale, q_offset, causal)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv), dims[-1])
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dq, dk, dv

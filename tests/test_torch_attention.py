@@ -290,6 +290,8 @@ BWD_BH_CASES = [
     (2, 40, 100, 64, 9, True, False),
     (3, 24, 56, 32, 5, True, True),
     (2, 32, 32, 16, 0, False, False),
+    (2, 30, 70, 96, 4, True, False),       # Dh 96: three 32-column chunks on the card
+    (3, 9, 45, 48, 6, True, True),         # Lq < 16, one query block
 ]
 
 
@@ -510,15 +512,22 @@ def test_tma_alignment_check_spares_calls_that_use_no_tma(name, dtype):
     tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted), 64)
 
 
+# the backwards whose bf16 calls take the tensor-core passes at every width
+_EVERY_WIDTH_BWD = ("band_attn_blocked_bwd_dq", "band_attn_blocked_bwd_dkv", "band_attn_bh_bwd")
+
+
 @pytest.mark.parametrize("name, n_tensors", [("band_attn_mh_bwd", 7),
                                              ("band_attn_segkv_bwd", 11),
-                                             ("band_attn_blocked_bwd_dkv", 6)])
+                                             ("band_attn_blocked_bwd_dkv", 6),
+                                             ("band_attn_blocked_bwd_dq", 5),
+                                             ("band_attn_bh_bwd", 7)])
 def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
-    """The bf16 calls of B1b, B3b and B2dkv at Dh 128 encode a tensor map
-    over every bf16 input and output (q, k, v[, kns, vns], dO, and the
-    gradients they compute), so one unaligned tensor among them is refused;
-    float32 calls and other head widths run the CUDA-core passes, which read
-    no tensor map."""
+    """The bf16 calls of B4b, B2dq and B2dkv at every head width, and those
+    of B1b and B3b at Dh 128, encode a tensor map over every bf16 input and
+    output (q, k, v[, kns, vns], dO, and the gradients they compute), so one
+    unaligned tensor among them is refused; float32 calls, and B1b and B3b
+    at other head widths, run the CUDA-core passes, which read no tensor
+    map."""
     flat = torch.zeros(4 * 8 * 128 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(4, 8, 128)
     aligned = torch.zeros(4, 8, 128, dtype=torch.bfloat16)
@@ -527,7 +536,11 @@ def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
         tensors[i] = shifted
         with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
             tfa._check_tma_aligned(name, tuple(tensors), 128)
-        tfa._check_tma_aligned(name, tuple(tensors), 64)
+        if name in _EVERY_WIDTH_BWD:
+            with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
+                tfa._check_tma_aligned(name, tuple(tensors), 64)
+        else:
+            tfa._check_tma_aligned(name, tuple(tensors), 64)
         tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
                                              flat.float()[1:].view(4, 8, 128)
                                              for t in tensors), 128)

@@ -11,9 +11,10 @@
   tensor-core kernel of ``band_attention_fwd_sm90.cuh``, at every head width
   the kernels are instantiated for (B1f with its NS segment's maps); their
   float32 calls stay on the CUDA-core kernel;
-- the bf16 calls of B1b and B3b at Dh 128 reach both tensor-core passes of
-  ``band_attention_bwd_sm90.cuh``, and those of B2dkv at Dh 128 its dkv pass
-  alone, and no other call does; their float32 calls and other head widths
+- the bf16 calls of B4b reach both tensor-core passes of
+  ``band_attention_bwd_sm90.cuh`` and those of B2dq and B2dkv its dq and its
+  dkv pass alone, at every head width; those of B1b and B3b reach both
+  passes at Dh 128, the only width their dispatchers send; float32 calls
   stay on the CUDA-core passes;
 - the tensor-core backward encodes the maps of, and launches, only the
   passes a call names.
@@ -291,25 +292,65 @@ def test_chip_smoke_holds_the_bf16_segmented_forward_at_its_edges():
 
 
 def test_chip_smoke_holds_the_bf16_blocked_dkv_pass_at_its_edges():
-    """B2dkv runs the tensor-core dkv pass at H = 1 and n = 0, Dh 128: the
-    card check reaches Lq < 64, Lkv % 64 != 0 past 1024 keys, a fully padded
-    row (make_inputs pads row 0 when n = 0) and the band off, in bf16 and
-    f32 alike."""
+    """B2dkv runs the tensor-core dkv pass at H = 1 and n = 0: the card
+    check reaches, at Dh 128, Lq < 64, Lkv % 64 != 0 past 1024 keys, a fully
+    padded row (make_inputs pads row 0 when n = 0) and the band off, and
+    the other widths that reach it past 1024 keys (Dh 64 and 96), in bf16
+    and f32 alike."""
     import chip_smoke
 
     shapes = dict((name, s) for name, _, s in chip_smoke.BWD_KERNELS)["band_attn_blocked_bwd_dkv"]
     assert shapes[0] == dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128)
-    edges = shapes[1:]
-    assert all(s["h"] == 1 and s["n"] == 0 and s["dh"] == 128 and s["b"] > 1 for s in edges)
+    assert all(s["h"] == 1 and s["n"] == 0 and s["b"] > 1 for s in shapes)
+    assert {64, 96} <= {s["dh"] for s in shapes if s["ls"] > 1024}
+    edges = [s for s in shapes[1:] if s["dh"] == 128]
     assert any(s["lq"] < 64 for s in edges)
     assert any(s["ls"] % 64 and s["ls"] > 1024 for s in edges)
     assert any(not s.get("causal", True) for s in edges)
     assert chip_smoke.SOURCE["band_attn_blocked_bwd_dkv"].endswith("band_attention_bwd_sm90.cuh")
-    # B2dq stays on the CUDA cores
-    assert chip_smoke.SOURCE["band_attn_blocked_bwd_dq"].endswith("band_attention_bwd.cu")
+    # B2dq, the other half of the same backward, takes the tensor-core dq pass
+    assert chip_smoke.SOURCE["band_attn_blocked_bwd_dq"].endswith("band_attention_bwd_sm90.cuh")
+
+
+def test_chip_smoke_holds_the_bf16_bh_backward_at_every_width_and_blocked_dq_at_its_edges():
+    """B4b runs both tensor-core passes at every width of _KERNEL_DH, each
+    tiled its own way (64-, 32- or 16-column chunks), and B2dq the dq pass
+    past 1024 keys: the card check holds B4b at every width and at the edges
+    of the tiling, and B2dq at the same edges and widths as B2dkv, the other
+    half of its backward; their heaviest main-path shapes come first (TC's
+    and TB's layer 0), and ptxas lines name each pass's instance."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.BWD_KERNELS)
+    bh = shapes["band_attn_bh_bwd"]
+    assert bh[0] == dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64)
+    assert {s["dh"] for s in bh} == set(tfa._KERNEL_DH)
+    assert all(s["h"] == 1 and s["n"] == 0 and s["ls"] <= tfa.FUSED_MAX_KV for s in bh)
+    assert any(s["lq"] < 64 for s in bh)  # one query tile, rows past Lq
+    assert any(s["ls"] % 64 for s in bh)  # the last key tile zero-filled
+    assert any(not s.get("causal", True) for s in bh)  # the band off
+    assert any(s["b"] > 1 for s in bh)  # make_inputs pads row 0 when n = 0
+    dq = shapes["band_attn_blocked_bwd_dq"]
+    assert dq[0] == dict(b=256, h=1, lq=607, ls=1214, n=0, dh=128)
+    assert dq == shapes["band_attn_blocked_bwd_dkv"]
+    assert all(s["ls"] > tfa.FUSED_MAX_KV and s["b"] > 1 for s in dq)
+    assert any(s["lq"] < 64 for s in dq) and any(s["ls"] % 64 for s in dq)
+    assert any(not s.get("causal", True) for s in dq)
+    assert {64, 96, 128} <= {s["dh"] for s in dq}
+    for name in ("band_attn_bh_bwd", "band_attn_blocked_bwd_dq"):
+        assert chip_smoke.SOURCE[name].endswith("band_attention_bwd_sm90.cuh"), name
+    for kernel in ("band_attn_bwd_dq_sm90_kernel", "band_attn_bwd_dkv_sm90_kernel"):
+        label = chip_smoke.ptxas_label(
+            f"ptxas info : Compiling entry function '_ZN9band_attn4sm90{len(kernel)}{kernel}"
+            "ILi48EEEvNS0_7BwdMapsENS0_9BwdParamsE' for 'sm_90a'")
+        assert label == f"{kernel}<48>"
 
 
 def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes():
+    """B1b and B3b reach both tensor-core passes at Dh 128 (the only width
+    their dispatchers send), B4b both passes and B2dq/B2dkv one pass each at
+    every width of the switch in bwd_bf16; float32 stays on the CUDA-core
+    passes."""
     header = (_build.CSRC / "band_attention_bwd_sm90.cuh").read_text()
     bwd = (_build.CSRC / "band_attention_bwd.cu").read_text()
     # the backward's source includes the tensor-core passes, which share the
@@ -326,26 +367,39 @@ def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes
                          rf"\s*{kernel}\(", header), kernel
         assert re.search(rf"{kernel}<DH>\s*<<<", header), kernel
     assert "constexpr int DKV_WARPGROUPS = 2;" in header
-    # the dispatch refuses every width but 128
-    assert "if (dh != 128 ||" in header[header.index("int bwd_bf16("):]
-    for name, passes in (("band_attn_segkv_bwd", "DQ | DKV"), ("band_attn_mh_bwd", "DQ | DKV"),
-                         ("band_attn_blocked_bwd_dkv", "DKV")):
+    # the dispatch takes every width of the shared list, as fwd_bf16 does,
+    # and refuses any other
+    dispatch = header[header.index("inline int bwd_bf16("):]
+    assert "dh != 128" not in dispatch
+    assert re.search(r"case D:\s*\\\s*return \(int\)launch_bwd<D>\(", dispatch)
+    assert "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)" in dispatch
+    assert "default: return (int)cudaErrorInvalidValue;" in dispatch
+    assert "launch_bwd<128>" not in header
+    routes = (("band_attn_segkv_bwd", "if (dtype == 1 && dh == 128)", "DQ | DKV"),
+              ("band_attn_mh_bwd", "if (dtype == 1 && dh == 128)", "DQ | DKV"),
+              ("band_attn_bh_bwd", "if (dtype == 1)", "DQ | DKV"),
+              ("band_attn_blocked_bwd_dq", "if (dtype == 1)", "DQ"),
+              ("band_attn_blocked_bwd_dkv", "if (dtype == 1)", "DKV"))
+    for name, guard, passes in routes:
         body = _entry_body(bwd, name)
-        # bf16 at Dh 128 returns from the tensor-core passes before anything
-        # else runs; float32 and the other widths go through launch()
-        route = re.search(r"if \(dtype == 1 && dh == 128\)[^;]*?return sm90::bwd_bf16\(", body)
+        # the tensor-core route returns before anything else runs; float32
+        # (and B1b/B3b at other widths) goes through launch()
+        route = re.search(rf"{re.escape(guard)}[^;]*?return sm90::bwd_bf16\(", body)
         assert route and route.start() == body.index("if ("), name
         call, rest = body[route.end():].split(";", 1)
-        # the passes it names: both, or B2dkv's dkv pass alone
+        # the passes it names: both, or one pass alone
         assert re.search(rf",\s*{re.escape(passes)}, stream\)$", call), (name, call)
         assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
-    # B2dkv's bf16 call is [BH, L, Dh] as H = 1 with no dq tensor and no NS
-    dkv_call = _entry_body(bwd, "band_attn_blocked_bwd_dkv")
-    args = [a.strip() for a in dkv_call[dkv_call.index("bwd_bf16(") + 9:].split(")")[0].split(",")]
-    assert args[9:16] == ["nullptr", "dk", "dv", "nullptr", "nullptr", "bh", "1"], args
-    for name in ("band_attn_blocked_bwd_dq", "band_attn_bh_bwd"):
+    # [BH, L, Dh] is H = 1 with no NS segment; B2dq passes no dk/dv, B2dkv
+    # no dq, B4b all three
+    for name, outs in (("band_attn_blocked_bwd_dq", ["dq", "nullptr", "nullptr"]),
+                       ("band_attn_blocked_bwd_dkv", ["nullptr", "dk", "dv"]),
+                       ("band_attn_bh_bwd", ["dq", "dk", "dv"])):
         body = _entry_body(bwd, name)
-        assert "sm90" not in body and "return launch(a," in body, name
+        args = [a.strip() for a in body[body.index("bwd_bf16(") + 9:].split(")")[0].split(",")]
+        assert args[3:5] == ["nullptr", "nullptr"], (name, args)
+        assert args[9:16] == [*outs, "nullptr", "nullptr", "bh", "1"], (name, args)
+        assert args[18] == "0", (name, args)
     # launch() keeps both dtypes on the CUDA-core passes
     launch = bwd[bwd.index("int launch(const BwdArgs& a"):]
     assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);" in launch
