@@ -10,18 +10,20 @@ Phases, in order; any failure raises and exits non-zero:
    nvcc per source, all at once;
 3. hold each of the four forward kernels against its plain PyTorch version
    at the serving shapes (the blocked kernel also at every other Dh, the bh
-   kernel at Dh 96, ranking_base's head width, the mh kernel first at the
-   S-trunk gradient's shapes, and the segmented kernel also at Dh 64 and 48
-   and at small shapes that reach each edge of its tiling), in bf16 and f32
-   (the bf16 blocked, mh and segmented calls run the tensor-core kernel,
-   the rest the CUDA-core one), and time kernel, plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls)
-   with CUDA events, beside the kernel's bound; then the same for the five
-   backward kernels at the training shapes (B3b at the S-trunk gradient's
-   shapes), against their plain backward and SDPA's backward (the bf16
-   calls run the tensor-core passes: B1b, B3b and B4b both, B2dq and B2dkv
-   one each; also at small shapes that reach each edge of their tiling,
-   B2dq and B2dkv at Dh 64 and 96 as well, and B4b at every Dh);
+   kernel first at training phase TC's layer 0, then at the serving
+   shapes, Dh 96 (ranking_base's head width), the edges of its tiling and
+   every other Dh, the mh kernel first at the S-trunk gradient's shapes,
+   and the segmented kernel also at Dh 64 and 48 and at small shapes that
+   reach each edge of its tiling), in bf16 and f32 (every bf16 call runs
+   the tensor-core kernel, every f32 call the CUDA-core one), and time
+   kernel, plain version and ``F.scaled_dot_product_attention`` (a
+   yardstick the port never calls) with CUDA events, beside the kernel's
+   bound; then the same for the five backward kernels at the training
+   shapes (B3b at the S-trunk gradient's shapes), against their plain
+   backward and SDPA's backward (the bf16 calls run the tensor-core passes:
+   B1b, B3b and B4b both, B2dq and B2dkv one each; also at small shapes
+   that reach each edge of their tiling, B1b and B3b at Dh 64, 96, 48 and
+   16 as well, B2dq and B2dkv at Dh 64 and 96, and B4b at every Dh);
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -120,13 +122,26 @@ CARD = ""
 # Lq), Ls % 64 != 0 with n = 12 (the last S tile zero-filled, the NS tile
 # holding only its n rows), a fully padded batch row (n = 0: no valid key at
 # all; n = 12: no valid S key, so rows below Ls have no valid key), and the
-# band off. B1f and B1b take those with n = 12, B3b those with n = 0.
+# band off. B1f and B1b take those with n = 12, B3b those with n = 0. The
+# tensor-core backward tiles each width otherwise (64-, 32- or 16-column
+# chunks) and a head's columns start at h·Dh, so B1b and B3b also take the
+# edges at the widths below 128, with 2 or 4 heads.
 EDGE_SHAPES = [
     dict(b=3, h=2, lq=40, ls=100, n=12, dh=128),
     dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, padded_row=True),
     dict(b=3, h=2, lq=150, ls=200, n=12, dh=128, causal=False),
     dict(b=3, h=2, lq=40, ls=100, n=0, dh=128),
     dict(b=2, h=2, lq=70, ls=130, n=0, dh=128, causal=False),
+]
+NARROW_EDGE_SHAPES = [
+    dict(b=3, h=4, lq=40, ls=100, n=12, dh=64),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=96, padded_row=True),
+    dict(b=3, h=2, lq=150, ls=200, n=12, dh=48, causal=False),
+    dict(b=2, h=4, lq=70, ls=130, n=12, dh=16),
+    dict(b=3, h=4, lq=40, ls=100, n=0, dh=64),
+    dict(b=3, h=2, lq=150, ls=200, n=0, dh=96),
+    dict(b=3, h=2, lq=150, ls=200, n=0, dh=48, causal=False),
+    dict(b=2, h=4, lq=70, ls=130, n=0, dh=16),
 ]
 # (name, JAX kernel body it replaces, shapes on the main path). The first
 # shape of each kernel is the one its JSON entry reports (its heaviest).
@@ -145,11 +160,21 @@ KERNELS = [
         *(dict(b=64, h=1, lq=607, ls=1214, n=0, dh=dh) for dh in (16, 32, 48, 80, 112)),
     ]),
     ("band_attn_bh_fwd", "recommend_tpu/ops/pallas/flash_attention.py:393", [
-        # phase C batch_inference (B=128, H=4) and score_request, layer 0
+        # phase TC layer 0 (batch 512 x 4 heads), then phase C
+        # batch_inference (B=128, H=4) and score_request, layer 0
+        dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64),
         dict(b=512, h=1, lq=103, ls=206, n=0, dh=64),
         dict(b=4, h=1, lq=91, ls=194, n=0, dh=64),
         # ranking_base's head width (384 / 4 heads), training layer 0 shape
         dict(b=512, h=1, lq=181, ls=362, n=0, dh=96),
+        # the edges of the tensor-core kernel's tiling: Lq < 64, a partial
+        # last query tile, Lkv % 64 != 0 (the last key tile zero-filled),
+        # row 0 fully padded (make_inputs pads it when n = 0), the band off;
+        # then every other width of _KERNEL_DH, which it tiles otherwise
+        dict(b=3, h=1, lq=40, ls=100, n=0, dh=64),
+        dict(b=3, h=1, lq=150, ls=200, n=0, dh=64),
+        dict(b=2, h=1, lq=70, ls=130, n=0, dh=64, causal=False),
+        *(dict(b=64, h=1, lq=181, ls=362, n=0, dh=dh) for dh in (16, 32, 48, 80, 112, 128)),
     ]),
     ("band_attn_mh_fwd", "recommend_tpu/ops/pallas/flash_attention.py:620", [
         # after phase SG's shapes (put first in main): encode_s serving,
@@ -179,7 +204,7 @@ KERNELS = [
 CSRC = "recommend_tpu_torch/csrc/"
 SOURCE = {"band_attn_blocked_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_mh_fwd": CSRC + "band_attention_fwd_sm90.cuh",
-          "band_attn_bh_fwd": CSRC + "band_attention.cu",
+          "band_attn_bh_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_segkv_fwd": CSRC + "band_attention_fwd_sm90.cuh",
           "band_attn_segkv_bwd": CSRC + "band_attention_bwd_sm90.cuh",
           "band_attn_mh_bwd": CSRC + "band_attention_bwd_sm90.cuh",
@@ -381,7 +406,7 @@ BWD_KERNELS = [
     ("band_attn_segkv_bwd", "recommend_tpu/ops/pallas/flash_attention.py:912", [
         # phase TA layer 0 (batch 512, 2 heads)
         dict(b=512, h=2, lq=181, ls=350, n=12, dh=128),
-        *(s for s in EDGE_SHAPES if s["n"]),
+        *(s for s in EDGE_SHAPES + NARROW_EDGE_SHAPES if s["n"]),
     ]),
     ("band_attn_blocked_bwd_dq", "recommend_tpu/ops/pallas/flash_attention.py:102",
      BLOCKED_BWD_SHAPES),
@@ -400,10 +425,9 @@ BWD_KERNELS = [
         dict(b=2, h=1, lq=70, ls=130, n=0, dh=64, causal=False),
         *(dict(b=64, h=1, lq=181, ls=362, n=0, dh=dh) for dh in (16, 32, 48, 80, 112, 128)),
     ]),
-    # phase SG's shapes, put first by main, then the edges. Dh 128 only: the
-    # dispatcher sends model-layout attention here only when Dh % 128 == 0
+    # phase SG's shapes, put first by main, then the edges
     ("band_attn_mh_bwd", "recommend_tpu/ops/pallas/flash_attention.py:654",
-     [s for s in EDGE_SHAPES if not s["n"]]),
+     [s for s in EDGE_SHAPES + NARROW_EDGE_SHAPES if not s["n"]]),
 ]
 # the kernels phase SG runs: checked first at its shapes
 SG_KERNELS = ("band_attn_mh_fwd", "band_attn_mh_bwd")
@@ -1061,19 +1085,17 @@ def session_phase(fa, totals):
 
 
 def ptxas_label(line: str) -> str:
-    """``name<type, template ints and bools>`` of the kernel whose mangled
-    name a ptxas 'Compiling entry function' line gives, e.g.
-    band_attn_kernel<bf16, 128> or band_attn_fwd_sm90_kernel<128, true>."""
+    """``name<template ints and bools>`` of the kernel whose mangled name a
+    ptxas 'Compiling entry function' line gives, e.g. band_attn_kernel<128>
+    or band_attn_fwd_sm90_kernel<128, true>."""
     import re
 
     m = re.search(r"(band_attn_\w*?kernel)I(\w*?)EE", line)
     if not m:
         return line.strip()
-    targs = m.group(2) + "E"  # e.g. fLi128E, 13__nv_bfloat16Li96E, Li128ELb1E
+    targs = m.group(2) + "E"  # e.g. Li128E, Li128ELb1E
     args = [v if k == "i" else ("true" if v == "1" else "false")
             for k, v in re.findall(r"L([ib])(\d+)E", targs)]
-    if not targs.startswith("Li"):
-        args.insert(0, "bf16" if "bfloat16" in targs else "f32")
     return f"{m.group(1)}<{', '.join(args)}>"
 
 

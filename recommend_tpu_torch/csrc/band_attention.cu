@@ -25,25 +25,22 @@
 // all masked, and there the plain reference (a uniform softmax over the real
 // keys) is what this kernel computes.
 //
-// Two bodies serve them. The bfloat16 calls of B2f, B3f and B1f run on the
+// Two bodies serve them, split by dtype. Every bfloat16 call runs on the
 // tensor cores: band_attention_fwd_sm90.cuh (wgmma for both products,
 // TMA-fed tiles in a K/V ring, B1f's NS segment through its own tensor maps;
-// its note says what bounds them and what it does). Everything else runs the
-// CUDA-core body below: every float32 call (the tensor cores have no
-// full-float32 product, and TF32 would not hold the float32 checks at 1e-4)
-// and B4f in both types.
+// its note says what bounds them and what it does), [BH, L, Dh] as H = 1.
+// Every float32 call runs the CUDA-core body below: the tensor cores have no
+// full-float32 product, and TF32 would not hold the float32 checks at 1e-4.
 // The CUDA-core body: one block per (batch, head, 64-row query tile); the
 // block loops over 64-key tiles only up to the band edge of its last row
 // (tiles wholly above the band are skipped, as _run_block does), keeps the
-// running max/sum/accumulator of the online softmax in registers (float32),
-// and stages Q, K then V, and P in shared memory as float32, so the
-// [Lq, Lkv] logits never reach device memory. Its products are float32 FMAs
-// (67 TF/s peak), so it stays far from its bound: at the serving shapes the
-// work is 4 * Dh flops per in-band (row, key) pair against roughly
-// (Lq + 2 Lkv) * Dh elements moved, bound by operations on the tensor cores.
+// running max/sum/accumulator of the online softmax in registers, and stages
+// Q, K then V, and P in shared memory, so the [Lq, Lkv] logits never reach
+// device memory. Its products are float32 FMAs (67 TF/s peak), so it stays
+// far from its bound: at the serving shapes the work is 4 * Dh flops per
+// in-band (row, key) pair against roughly (Lq + 2 Lkv) * Dh elements moved.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -70,7 +67,7 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (DH + 1) + BK * (DH + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
   static_assert(DH % 16 == 0, "Dh must be a multiple of 16");
   constexpr int RS = DH + 1;        // padded smem row stride (no bank conflicts)
@@ -88,16 +85,16 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
   const int row0 = tile * BQ;
   const int total = a.L1 + a.L2;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const T* k1 = static_cast<const T*>(a.k) + b * a.kv_bs + h * a.kv_hs;
-  const T* v1 = static_cast<const T*>(a.v) + b * a.kv_bs + h * a.kv_hs;
-  const T* k2 = static_cast<const T*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
-  const T* v2 = static_cast<const T*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const float* k1 = static_cast<const float*>(a.k) + b * a.kv_bs + h * a.kv_hs;
+  const float* v1 = static_cast<const float*>(a.v) + b * a.kv_bs + h * a.kv_hs;
+  const float* k2 = static_cast<const float*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* v2 = static_cast<const float*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
   const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int r = i / DH, d = i % DH, row = row0 + r;
-    sq[r * RS + d] = row < a.Lq ? to_f(q[row * a.q_rs + d]) : 0.f;
+    sq[r * RS + d] = row < a.Lq ? q[row * a.q_rs + d] : 0.f;
   }
 
   float m[4], l[4], acc[4][DJ];
@@ -121,8 +118,8 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
     for (int i = tid; i < BK * DH; i += NT) {
       const int kk = i / DH, d = i % DH, j = k0 + kk;
       float x = 0.f;
-      if (j < a.L1) x = to_f(k1[j * a.kv_rs + d]);
-      else if (j < total) x = to_f(k2[(j - a.L1) * a.kv2_rs + d]);
+      if (j < a.L1) x = k1[j * a.kv_rs + d];
+      else if (j < total) x = k2[(j - a.L1) * a.kv2_rs + d];
       skv[kk * RS + d] = x;
     }
     __syncthreads();
@@ -173,8 +170,7 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        // p cast to the value dtype before PV (flash_attention.py:90,413)
-        sp[(tr * 4 + i) * PS + tc + 16 * j] = round_to<T>(p);
+        sp[(tr * 4 + i) * PS + tc + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -189,8 +185,8 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
     for (int i = tid; i < BK * DH; i += NT) {
       const int kk = i / DH, d = i % DH, j = k0 + kk;
       float x = 0.f;
-      if (j < a.L1) x = to_f(v1[j * a.kv_rs + d]);
-      else if (j < total) x = to_f(v2[(j - a.L1) * a.kv2_rs + d]);
+      if (j < a.L1) x = v1[j * a.kv_rs + d];
+      else if (j < total) x = v2[(j - a.L1) * a.kv2_rs + d];
       skv[kk * RS + d] = x;
     }
     __syncthreads();
@@ -209,7 +205,7 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
     }
   }
 
-  T* out = static_cast<T*>(a.out) + b * a.o_bs + h * a.o_hs;
+  float* out = static_cast<float*>(a.out) + b * a.o_bs + h * a.o_hs;
   float* lse = a.lse + ((long long)b * a.H + h) * a.Lq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -218,42 +214,36 @@ __global__ void __launch_bounds__(NT) band_attn_kernel(const Args a) {
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      out[row * a.o_rs + tc + 16 * j] = from_f<T>(acc[i][j] / lc);
+      out[row * a.o_rs + tc + 16 * j] = acc[i][j] / lc;
     if (tc == 0) lse[row] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_t(const Args& a, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   // above 48 KB of dynamic shared memory needs the opt-in, per device
   cudaError_t e = cudaFuncSetAttribute(
-      band_attn_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      band_attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.Lq + BQ - 1) / BQ, a.H, B);
-  band_attn_kernel<T, DH><<<grid, NT, smem, stream>>>(a);
+  band_attn_kernel<DH><<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(const Args& a, int B, int dh, cudaStream_t stream) {
-#define BAND_ATTN_CASE(D) case D: return launch_t<T, D>(a, B, stream);
-  switch (dh) {
-    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
-    default: return cudaErrorInvalidValue;
-  }
-#undef BAND_ATTN_CASE
-}
-
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
-int launch(const Args& a, int B, int dh, int dtype, void* stream) {
+// The float32 forward on the CUDA cores. Returns cudaGetLastError() of the
+// launch, or cudaErrorInvalidValue for a shape it does not take.
+int launch(const Args& a, int B, int dh, void* stream) {
   if (B <= 0 || a.Lq <= 0 || a.H <= 0 || a.H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_dh<float>(a, B, dh, s);
-  if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, s);
-  return (int)cudaErrorInvalidValue;
+#define BAND_ATTN_CASE(D) case D: return (int)launch_t<D>(a, B, s);
+  switch (dh) {
+    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BAND_ATTN_CASE
 }
 
 // [BH, L, Dh] layout: one head per leading row, bias [BH, Lkv], lse [BH, Lq]
@@ -303,7 +293,7 @@ int band_attn_blocked_fwd(const void* q, const void* k, const void* v,
                           q_offset, causal, sm_scale, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = bh_args(q, k, v, bias, out, lse, lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
+  return launch(a, bh, dh, stream);  // float32: band_attn_kernel<DH>
 }
 
 // B4f: whole-tile band attention over [BH, L, Dh]
@@ -311,8 +301,12 @@ int band_attn_bh_fwd(const void* q, const void* k, const void* v,
                      const float* bias, void* out, float* lse, int bh, int lq,
                      int lkv, int dh, int q_offset, int causal, float sm_scale,
                      int dtype, void* stream) {
+  if (dtype == 1)  // bf16: the tensor-core kernel, [BH, L, Dh] as H = 1
+    return sm90::fwd_bf16(q, k, v, nullptr, nullptr, bias, out, lse, bh, 1, lq, lkv, 0, dh,
+                          q_offset, causal, sm_scale, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = bh_args(q, k, v, bias, out, lse, lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, stream);
+  return launch(a, bh, dh, stream);  // float32: band_attn_kernel<DH>
 }
 
 // B3f: whole-tile band attention in model layout [B, L, H*Dh]
@@ -325,7 +319,7 @@ int band_attn_mh_fwd(const void* q, const void* k, const void* v,
                           q_offset, causal, sm_scale, stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   Args a = mh_args(q, k, v, bias, out, lse, h, lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, b, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
+  return launch(a, b, dh, stream);  // float32: band_attn_kernel<DH>
 }
 
 // B1f: model layout with the keys in two segments, S [B, Ls, H*Dh] with its
@@ -344,7 +338,7 @@ int band_attn_segkv_fwd(const void* q, const void* k, const void* v,
   const long long hd = (long long)h * dh;
   a.k2 = kns; a.v2 = vns; a.kv2_bs = n * hd; a.kv2_hs = dh; a.kv2_rs = hd;
   a.L2 = n;
-  return launch(a, b, dh, dtype, stream);  // float32: band_attn_kernel<float, DH>
+  return launch(a, b, dh, stream);  // float32: band_attn_kernel<DH>
 }
 
 }  // extern "C"

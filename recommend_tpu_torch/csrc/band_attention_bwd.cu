@@ -42,20 +42,17 @@
 // hundred keys, hundreds of batch rows) the work is five matrix products,
 // 10 * Dh flops per (row, key) pair in the band (the dq and dkv passes
 // recompute s and dp, 14 * Dh together), against (3 Lq + 3 Lkv) * Dh
-// elements moved. The bf16 calls run the same two passes on the tensor
-// cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives their
-// design): those of band_attn_bh_bwd (B4b) both passes and those of
+// elements moved. Every bfloat16 call runs the same two passes on the
+// tensor cores, fed by TMA (band_attention_bwd_sm90.cuh, whose note gives
+// their design), at every head width: band_attn_bh_bwd (B4b),
+// band_attn_mh_bwd (B3b) and band_attn_segkv_bwd (B1b) both passes,
 // band_attn_blocked_bwd_dq (B2dq) and band_attn_blocked_bwd_dkv (B2dkv) one
-// pass each, at every head width; those of band_attn_segkv_bwd and
-// band_attn_mh_bwd (B1b and B3b) both passes at Dh 128, the only width the
-// dispatchers send them. Every other call, float32 (a full-float32
-// tensor-core product does not exist, and TF32 would miss the float32
-// checks) and B1b/B3b at other widths, runs the passes below as float32
-// FMAs on the CUDA cores (67 TF/s peak) with 116 KB (dq) and 149 KB (dkv)
-// of shared memory at Dh 128, one block per SM.
+// pass each. Every float32 call (a full-float32 tensor-core product does not
+// exist, and TF32 would miss the float32 checks) runs the passes below as
+// float32 FMAs on the CUDA cores (67 TF/s peak) with 116 KB (dq) and 149 KB
+// (dkv) of shared memory at Dh 128, one block per SM.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -98,7 +95,7 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(float) * (size_t)(2 * BQ * (DH + 1) + BK * (DH + 1) + BQ * (BK + 1));
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
   constexpr int RS = DH + 1;        // padded smem row stride (no bank conflicts)
   constexpr int PS = BK + 1;
@@ -116,20 +113,20 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
   const int row0 = tile * BQ;
   const int total = a.L1 + a.L2;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.q_bs + h * a.q_hs;
-  const T* k1 = static_cast<const T*>(a.k) + b * a.kv_bs + h * a.kv_hs;
-  const T* v1 = static_cast<const T*>(a.v) + b * a.kv_bs + h * a.kv_hs;
-  const T* k2 = static_cast<const T*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
-  const T* v2 = static_cast<const T*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const float* dout = static_cast<const float*>(a.dout) + b * a.q_bs + h * a.q_hs;
+  const float* k1 = static_cast<const float*>(a.k) + b * a.kv_bs + h * a.kv_hs;
+  const float* v1 = static_cast<const float*>(a.v) + b * a.kv_bs + h * a.kv_hs;
+  const float* k2 = static_cast<const float*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* v2 = static_cast<const float*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
   const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
   const long long stat = ((long long)b * a.H + h) * a.Lq;
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int r = i / DH, d = i % DH, row = row0 + r;
     const bool in = row < a.Lq;
-    sq[r * RS + d] = in ? to_f(q[row * a.q_rs + d]) : 0.f;
-    sdo[r * RS + d] = in ? to_f(dout[row * a.q_rs + d]) : 0.f;
+    sq[r * RS + d] = in ? q[row * a.q_rs + d] : 0.f;
+    sdo[r * RS + d] = in ? dout[row * a.q_rs + d] : 0.f;
   }
   float lse[4], delta[4], acc[4][DJ];
 #pragma unroll
@@ -152,8 +149,8 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
     for (int i = tid; i < BK * DH; i += NT) {
       const int kk = i / DH, d = i % DH, j = k0 + kk;
       float x = 0.f;
-      if (j < a.L1) x = to_f(v1[j * a.kv_rs + d]);
-      else if (j < total) x = to_f(v2[(j - a.L1) * a.kv2_rs + d]);
+      if (j < a.L1) x = v1[j * a.kv_rs + d];
+      else if (j < total) x = v2[(j - a.L1) * a.kv2_rs + d];
       skv[kk * RS + d] = x;
     }
     __syncthreads();
@@ -180,8 +177,8 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
     for (int i = tid; i < BK * DH; i += NT) {
       const int kk = i / DH, d = i % DH, j = k0 + kk;
       float x = 0.f;
-      if (j < a.L1) x = to_f(k1[j * a.kv_rs + d]);
-      else if (j < total) x = to_f(k2[(j - a.L1) * a.kv2_rs + d]);
+      if (j < a.L1) x = k1[j * a.kv_rs + d];
+      else if (j < total) x = k2[(j - a.L1) * a.kv2_rs + d];
       skv[kk * RS + d] = x;
     }
     __syncthreads();
@@ -214,7 +211,7 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
         if (key < total && row < a.Lq) {
           const float p = expf(logit(s[i][j], a.sm_scale, bias, a.L1, a.causal, key,
                                     a.q_offset + row) - lse[i]);
-          ds = round_to<T>(p * (dp[i][j] - delta[i]) * a.sm_scale);
+          ds = p * (dp[i][j] - delta[i]) * a.sm_scale;
         }
         sds[(tr * 4 + i) * PS + tc + 16 * j] = ds;
       }
@@ -235,13 +232,13 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dq_kernel(const BwdArgs a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq) + b * a.q_bs + h * a.q_hs;
+  float* dq = static_cast<float*>(a.dq) + b * a.q_bs + h * a.q_hs;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + tr * 4 + i;
     if (row >= a.Lq) continue;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) dq[row * a.q_rs + tc + 16 * j] = from_f<T>(acc[i][j]);
+    for (int j = 0; j < DJ; ++j) dq[row * a.q_rs + tc + 16 * j] = acc[i][j];
   }
 }
 
@@ -255,7 +252,7 @@ constexpr size_t dkv_smem_bytes() {
          (size_t)(2 * BK * (DH + 1) + 2 * BQ * (DH + 1) + BK * (BQ + 1) + 2 * BQ);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) {
   constexpr int RS = DH + 1;
   constexpr int PS = BQ + 1;
@@ -276,12 +273,12 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
   const int key0 = tile * BK;
   const int total = a.L1 + a.L2;
 
-  const T* q = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const T* dout = static_cast<const T*>(a.dout) + b * a.q_bs + h * a.q_hs;
-  const T* k1 = static_cast<const T*>(a.k) + b * a.kv_bs + h * a.kv_hs;
-  const T* v1 = static_cast<const T*>(a.v) + b * a.kv_bs + h * a.kv_hs;
-  const T* k2 = static_cast<const T*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
-  const T* v2 = static_cast<const T*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const float* dout = static_cast<const float*>(a.dout) + b * a.q_bs + h * a.q_hs;
+  const float* k1 = static_cast<const float*>(a.k) + b * a.kv_bs + h * a.kv_hs;
+  const float* v1 = static_cast<const float*>(a.v) + b * a.kv_bs + h * a.kv_hs;
+  const float* k2 = static_cast<const float*>(a.k2) + b * a.kv2_bs + h * a.kv2_hs;
+  const float* v2 = static_cast<const float*>(a.v2) + b * a.kv2_bs + h * a.kv2_hs;
   const float* bias = a.bias + b * a.bias_bs + h * a.bias_hs;
   const long long stat = ((long long)b * a.H + h) * a.Lq;
 
@@ -289,11 +286,11 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
     const int kk = i / DH, d = i % DH, j = key0 + kk;
     float xk = 0.f, xv = 0.f;
     if (j < a.L1) {
-      xk = to_f(k1[j * a.kv_rs + d]);
-      xv = to_f(v1[j * a.kv_rs + d]);
+      xk = k1[j * a.kv_rs + d];
+      xv = v1[j * a.kv_rs + d];
     } else if (j < total) {
-      xk = to_f(k2[(j - a.L1) * a.kv2_rs + d]);
-      xv = to_f(v2[(j - a.L1) * a.kv2_rs + d]);
+      xk = k2[(j - a.L1) * a.kv2_rs + d];
+      xv = v2[(j - a.L1) * a.kv2_rs + d];
     }
     sk[kk * RS + d] = xk;
     sv[kk * RS + d] = xv;
@@ -314,8 +311,8 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
     for (int i = tid; i < BQ * DH; i += NT) {
       const int r = i / DH, d = i % DH, row = q0 + r;
       const bool in = row < a.Lq;
-      sq[r * RS + d] = in ? to_f(q[row * a.q_rs + d]) : 0.f;
-      sdo[r * RS + d] = in ? to_f(dout[row * a.q_rs + d]) : 0.f;
+      sq[r * RS + d] = in ? q[row * a.q_rs + d] : 0.f;
+      sdo[r * RS + d] = in ? dout[row * a.q_rs + d] : 0.f;
     }
     for (int r = tid; r < BQ; r += NT) {
       const int row = q0 + r;
@@ -363,9 +360,9 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
         if (key < total && row < a.Lq) {
           p = expf(logit(s[i][j], a.sm_scale, bias, a.L1, a.causal, key,
                          a.q_offset + row) - slse[r]);
-          ds[i][j] = round_to<T>(p * (dp[i][j] - sdelta[r]) * a.sm_scale);
+          ds[i][j] = p * (dp[i][j] - sdelta[r]) * a.sm_scale;
         }
-        sp[(tr * 4 + i) * PS + r] = round_to<T>(p);  // p cast to dO's dtype
+        sp[(tr * 4 + i) * PS + r] = p;
       }
     }
     __syncthreads();  // P^T is complete
@@ -408,21 +405,21 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
   for (int i = 0; i < 4; ++i) {
     const int key = key0 + tr * 4 + i;
     if (key >= total) continue;
-    T* dk;
-    T* dv;
+    float* dk;
+    float* dv;
     if (key < a.L1) {
       const long long off = b * a.kv_bs + h * a.kv_hs + key * a.kv_rs;
-      dk = static_cast<T*>(a.dk) + off;
-      dv = static_cast<T*>(a.dv) + off;
+      dk = static_cast<float*>(a.dk) + off;
+      dv = static_cast<float*>(a.dv) + off;
     } else {
       const long long off = b * a.kv2_bs + h * a.kv2_hs + (key - a.L1) * a.kv2_rs;
-      dk = static_cast<T*>(a.dk2) + off;
-      dv = static_cast<T*>(a.dv2) + off;
+      dk = static_cast<float*>(a.dk2) + off;
+      dv = static_cast<float*>(a.dv2) + off;
     }
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[tc + 16 * j] = from_f<T>(dk_acc[i][j]);
-      dv[tc + 16 * j] = from_f<T>(dv_acc[i][j]);
+      dk[tc + 16 * j] = dk_acc[i][j];
+      dv[tc + 16 * j] = dv_acc[i][j];
     }
   }
 }
@@ -431,52 +428,46 @@ __global__ void __launch_bounds__(NT) band_attn_bwd_dkv_kernel(const BwdArgs a) 
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_t(const BwdArgs& a, int B, int passes, cudaStream_t stream) {
   cudaError_t e;
   if (passes & DQ) {
     constexpr size_t smem = dq_smem_bytes<DH>();
     // above 48 KB of dynamic shared memory needs the opt-in, per device
-    e = cudaFuncSetAttribute(band_attn_bwd_dq_kernel<T, DH>,
+    e = cudaFuncSetAttribute(band_attn_bwd_dq_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     dim3 grid((a.Lq + BQ - 1) / BQ, a.H, B);
-    band_attn_bwd_dq_kernel<T, DH><<<grid, NT, smem, stream>>>(a);
+    band_attn_bwd_dq_kernel<DH><<<grid, NT, smem, stream>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   if (passes & DKV) {
     constexpr size_t smem = dkv_smem_bytes<DH>();
-    e = cudaFuncSetAttribute(band_attn_bwd_dkv_kernel<T, DH>,
+    e = cudaFuncSetAttribute(band_attn_bwd_dkv_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     dim3 grid((a.L1 + a.L2 + BK - 1) / BK, a.H, B);
-    band_attn_bwd_dkv_kernel<T, DH><<<grid, NT, smem, stream>>>(a);
+    band_attn_bwd_dkv_kernel<DH><<<grid, NT, smem, stream>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
-template <typename T>
-cudaError_t launch_dh(const BwdArgs& a, int B, int dh, int passes, cudaStream_t stream) {
-#define BAND_ATTN_CASE(D) case D: return launch_t<T, D>(a, B, passes, stream);
-  switch (dh) {
-    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
-    default: return cudaErrorInvalidValue;
-  }
-#undef BAND_ATTN_CASE
-}
-
-// dtype: 0 = float32, 1 = bfloat16. Returns the first launch error, if any.
-int launch(const BwdArgs& a, int B, int dh, int dtype, int passes, void* stream) {
+// The float32 passes on the CUDA cores. Returns the first launch error, if
+// any, or cudaErrorInvalidValue for a shape they do not take.
+int launch(const BwdArgs& a, int B, int dh, int passes, void* stream) {
   if (B <= 0 || a.Lq <= 0 || a.H <= 0 || a.H > 65535 || B > 65535 ||
       a.L1 + a.L2 <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);
-  if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, passes, s);
-  return (int)cudaErrorInvalidValue;
+#define BAND_ATTN_CASE(D) case D: return (int)launch_t<D>(a, B, passes, s);
+  switch (dh) {
+    BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BAND_ATTN_CASE
 }
 
 // [BH, L, Dh] layout: one head per leading row, bias [BH, Lkv], lse and
@@ -512,9 +503,10 @@ int band_attn_blocked_bwd_dq(const void* q, const void* k, const void* v,
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, nullptr,
                           nullptr, nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal,
                           sm_scale, DQ, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, nullptr, nullptr,
                       lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, DQ, stream);
+  return launch(a, bh, dh, DQ, stream);
 }
 
 // B2dkv: dK and dV of the blocked band attention over [BH, L, Dh]. bf16 runs
@@ -529,9 +521,10 @@ int band_attn_blocked_bwd_dkv(const void* q, const void* k, const void* v,
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, nullptr, dk, dv,
                           nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal, sm_scale,
                           DKV, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, nullptr, dk, dv,
                       lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, DKV, stream);
+  return launch(a, bh, dh, DKV, stream);
 }
 
 // B4b: dQ, dK and dV of the whole-tile band attention over [BH, L, Dh]. bf16
@@ -545,26 +538,28 @@ int band_attn_bh_bwd(const void* q, const void* k, const void* v,
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, dk, dv,
                           nullptr, nullptr, bh, 1, lq, lkv, 0, dh, q_offset, causal, sm_scale,
                           DQ | DKV, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   BwdArgs a = bh_args(q, k, v, bias, dout, lse, delta, dq, dk, dv,
                       lq, lkv, dh, q_offset, causal, sm_scale);
-  return launch(a, bh, dh, dtype, DQ | DKV, stream);
+  return launch(a, bh, dh, DQ | DKV, stream);
 }
 
 // B3b: dQ, dK and dV of the whole-tile band attention in model layout,
 // q/dO [B, Lq, H*Dh], k/v [B, Lkv, H*Dh] with head h in columns h*Dh ..
 // h*Dh+Dh-1, bias [B, Lkv] shared by the heads, lse and delta [B, H, Lq]:
 // the segmented passes with one key segment (L2 = 0, null segment-2
-// pointers with zero strides). bf16 at Dh 128 runs the tensor-core passes,
-// everything else the CUDA-core ones.
+// pointers with zero strides). bf16 runs both tensor-core passes, float32
+// the CUDA-core ones.
 int band_attn_mh_bwd(const void* q, const void* k, const void* v,
                      const float* bias, const void* dout, const float* lse,
                      const float* delta, void* dq, void* dk, void* dv, int b,
                      int h, int lq, int lkv, int dh, int q_offset, int causal,
                      float sm_scale, int dtype, void* stream) {
-  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes, one segment
+  if (dtype == 1)  // bf16: the tensor-core passes, one segment
     return sm90::bwd_bf16(q, k, v, nullptr, nullptr, bias, dout, lse, delta, dq, dk, dv,
                           nullptr, nullptr, b, h, lq, lkv, 0, dh, q_offset, causal, sm_scale,
                           DQ | DKV, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
@@ -575,14 +570,14 @@ int band_attn_mh_bwd(const void* q, const void* k, const void* v,
   a.dq = dq; a.dk = dk; a.dv = dv; a.dk2 = nullptr; a.dv2 = nullptr;
   a.H = h; a.Lq = lq; a.L1 = lkv; a.L2 = 0;
   a.q_offset = q_offset; a.causal = causal; a.sm_scale = sm_scale;
-  return launch(a, b, dh, dtype, DQ | DKV, stream);
+  return launch(a, b, dh, DQ | DKV, stream);
 }
 
 // B1b: model layout [B, L, H*Dh] with the keys in two segments, S [B, Ls,
 // H*Dh] with its bias [B, Ls] at positions 0..Ls-1 and NS [B, n, H*Dh], all
 // valid, at positions Ls..Ls+n-1; lse and delta [B, H, Lq]. dK/dV of each
-// segment go to their own tensors. bf16 at Dh 128 runs the tensor-core
-// passes, everything else the CUDA-core ones.
+// segment go to their own tensors. bf16 runs both tensor-core passes,
+// float32 the CUDA-core ones.
 int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
                         const void* kns, const void* vns, const float* bias,
                         const void* dout, const float* lse, const float* delta,
@@ -590,9 +585,10 @@ int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
                         int b, int h, int lq, int ls, int n, int dh,
                         int q_offset, int causal, float sm_scale, int dtype,
                         void* stream) {
-  if (dtype == 1 && dh == 128)  // bf16 at Dh 128: the tensor-core passes
+  if (dtype == 1)  // bf16: the tensor-core passes, NS through its own maps
     return sm90::bwd_bf16(q, k, v, kns, vns, bias, dout, lse, delta, dq, dk, dv, dkns, dvns,
                           b, h, lq, ls, n, dh, q_offset, causal, sm_scale, DQ | DKV, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const long long hd = (long long)h * dh;
   BwdArgs a{};
   a.q = q; a.q_bs = lq * hd; a.q_hs = dh; a.q_rs = hd;
@@ -603,7 +599,7 @@ int band_attn_segkv_bwd(const void* q, const void* k, const void* v,
   a.dq = dq; a.dk = dk; a.dv = dv; a.dk2 = dkns; a.dv2 = dvns;
   a.H = h; a.Lq = lq; a.L1 = ls; a.L2 = n;
   a.q_offset = q_offset; a.causal = causal; a.sm_scale = sm_scale;
-  return launch(a, b, dh, dtype, DQ | DKV, stream);
+  return launch(a, b, dh, DQ | DKV, stream);
 }
 
 }  // extern "C"

@@ -3,9 +3,10 @@
 // Serves the bfloat16 calls of five entry points of band_attention_bwd.cu:
 //
 //   band_attn_segkv_bwd        replaces _fmhseg_bwd_kernel :912 (B1b, both passes,
-//                                                          Dh 128)
+//                                                          [B, L, H*Dh], two
+//                                                          key segments)
 //   band_attn_mh_bwd           replaces _fmh_bwd_kernel    :654 (B3b, both passes,
-//                                                          Dh 128)
+//                                                          [B, L, H*Dh])
 //   band_attn_bh_bwd           replaces _fused_bwd_kernel  :420 (B4b, both passes,
 //                                                          [BH, L, Dh])
 //   band_attn_blocked_bwd_dq   replaces _dq_kernel         :102 (B2dq, the dq pass
@@ -13,9 +14,9 @@
 //   band_attn_blocked_bwd_dkv  replaces _dkv_kernel        :142 (B2dkv, the dkv
 //                                                          pass alone, [BH, L, Dh])
 //
-// B4b, B2dq and B2dkv take every head width of BAND_ATTN_FOR_EACH_DH (the
-// dispatchers send B4b every width that is not a multiple of 128); B1b and
-// B3b only Dh 128, the only width the dispatchers send them.
+// All five take every head width of BAND_ATTN_FOR_EACH_DH (the dispatchers
+// send B4b every width that is not a multiple of 128, B1b and B3b the
+// multiples of 128).
 //
 // of recommend_tpu/ops/pallas/flash_attention.py. It computes what they do
 // (band_attention_bwd.cu's note): for query row r and key j, s is formed as

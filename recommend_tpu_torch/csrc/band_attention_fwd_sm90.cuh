@@ -1,8 +1,9 @@
 // Band-masked attention forward on Hopper's tensor cores, bf16 (sm_90a).
 //
-// Serves the bfloat16 calls of three entry points of band_attention.cu:
+// Serves the bfloat16 calls of the four entry points of band_attention.cu:
 //
 //   band_attn_blocked_fwd  replaces _fwd_kernel         :59  (B2f, [BH, L, Dh])
+//   band_attn_bh_fwd       replaces _fused_fwd_kernel   :393 (B4f, [BH, L, Dh])
 //   band_attn_mh_fwd       replaces _fmh_fwd_kernel     :620 (B3f, [B, L, H*Dh])
 //   band_attn_segkv_fwd    replaces _fmhseg_fwd_kernel  :865 (B1f, [B, L, H*Dh],
 //                                                             two key segments)
@@ -14,12 +15,13 @@
 // 1e-30)) in float32; a key at or past the end of its segment is excluded.
 // B1f has two key segments under one softmax: S (Lkv keys at positions
 // 0..Lkv-1, with the bias) and NS (L2 keys at Lkv..Lkv+L2-1, all valid, no
-// bias); B2f and B3f are the same with L2 = 0, an instance of the kernel
-// (SEG = false) without the second segment's code. On a row with no valid
-// key the plain version also gives the NS keys above the band the weight of
-// its padded keys (their -1e9 band mask rounds to the padding's -1e9); the
-// kernel, as the CUDA-core one, skips them with the tiles above the band.
-// The model never reads such rows.
+// bias); B2f, B4f and B3f are the same with L2 = 0, an instance of the
+// kernel (SEG = false) without the second segment's code; B2f and B4f pass
+// their [BH, L, Dh] layout as H = 1. On a row with no valid key the plain
+// version also gives the NS keys above the band the weight of its padded
+// keys (their -1e9 band mask rounds to the padding's -1e9); the kernel, as
+// the CUDA-core one, skips them with the tiles above the band. The model
+// never reads such rows.
 //
 // What bounds it on the H100: B2f at its main-path shape (256 x 1, 607 x
 // 1214 rows, Dh 128) does 4 * Dh flops per in-band (row, key) pair, 72.5
@@ -28,7 +30,9 @@
 // gradient's shape (512 x 2 heads, 169 x 350 rows) moves 273 MB for 23.6
 // GFLOP: bound by bytes (0.082 ms). B1f at serving phase B's batch forward
 // (128 x 2 heads, 364 query rows, 595 + 12 keys) moves 128 MB for 20.3
-// GFLOP: bound by bytes (0.038 ms).
+// GFLOP: bound by bytes (0.038 ms). B4f at training phase TC's layer 0
+// (2048 x 1, 181 x 362 rows, Dh 64) moves 289 MB for 25.8 GFLOP: bound by
+// bytes (0.086 ms).
 //
 // What the design does about it:
 // - both products run on wgmma: S = Q K^T as m64n64k16 with Q and K K-major

@@ -6,19 +6,14 @@ Each of its Pallas kernels, forward and backward, has here
 - a wrapper named after its CUDA entry point (forward in
   ``csrc/band_attention.cu``: ``band_attn_blocked_fwd``, ``band_attn_bh_fwd``,
   ``band_attn_mh_fwd``, ``band_attn_segkv_fwd``, returning ``(out, lse)``;
-  the bf16 calls of ``band_attn_blocked_fwd``, ``band_attn_mh_fwd`` and
-  ``band_attn_segkv_fwd`` run the tensor-core kernel of
-  ``csrc/band_attention_fwd_sm90.cuh``, every other forward call the
-  CUDA-core kernel);
   backward in ``csrc/band_attention_bwd.cu``: ``band_attn_blocked_bwd_dq``,
   ``band_attn_blocked_bwd_dkv``, ``band_attn_bh_bwd``, ``band_attn_mh_bwd``,
-  ``band_attn_segkv_bwd``, returning the input gradients; the bf16 calls of
-  ``band_attn_bh_bwd``, ``band_attn_blocked_bwd_dq`` and
-  ``band_attn_blocked_bwd_dkv`` at every head width, and those of
-  ``band_attn_mh_bwd`` and ``band_attn_segkv_bwd`` at Dh 128, run the
-  tensor-core passes of ``csrc/band_attention_bwd_sm90.cuh`` (B2dq its dq
-  pass alone, B2dkv its dkv pass alone), every other backward call the
-  CUDA-core passes);
+  ``band_attn_segkv_bwd``, returning the input gradients). Every bf16 call
+  runs on the tensor cores, at every head width: the forwards the kernel of
+  ``csrc/band_attention_fwd_sm90.cuh``, the backwards the passes of
+  ``csrc/band_attention_bwd_sm90.cuh`` (B2dq its dq pass alone, B2dkv its
+  dkv pass alone, the others both). Every float32 call runs the CUDA-core
+  kernels of the two ``.cu`` files;
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
 - a launch count in ``LAUNCHES``, raised by one at each entry-point call.
@@ -280,23 +275,13 @@ def _check(name: str, same, f32, dh: int) -> bool:
     return False
 
 
-# the entry points whose bf16 calls read and write through TMA tensor maps,
-# with the head widths at which they do
-_TMA_ROUTES = {"band_attn_blocked_fwd": _KERNEL_DH, "band_attn_mh_fwd": _KERNEL_DH,
-               "band_attn_segkv_fwd": _KERNEL_DH, "band_attn_mh_bwd": (128,),
-               "band_attn_segkv_bwd": (128,), "band_attn_blocked_bwd_dq": _KERNEL_DH,
-               "band_attn_blocked_bwd_dkv": _KERNEL_DH, "band_attn_bh_bwd": _KERNEL_DH}
-
-
-def _check_tma_aligned(name: str, tensors, dh: int) -> None:
-    """The bf16 calls of B2f, B3f, B1f, B4b, B2dq and B2dkv, and those of
-    B1b and B3b at Dh 128, and only those, read and write their tiles
-    through TMA tensor maps, whose base addresses must be 16-byte aligned
-    (row strides, H·Dh·2 bytes, are multiples of 16 for every Dh in
-    ``_KERNEL_DH``). ``tensors`` are the ones a map is encoded over: the
-    bf16 inputs and outputs. Other calls run the CUDA-core kernels, which
-    need no alignment."""
-    if dh not in _TMA_ROUTES.get(name, ()) or tensors[0].dtype != torch.bfloat16:
+def _check_tma_aligned(name: str, tensors) -> None:
+    """Every bf16 call reads and writes its tiles through TMA tensor maps,
+    whose base addresses must be 16-byte aligned (row strides, H·Dh·2
+    bytes, are multiples of 16 for every Dh in ``_KERNEL_DH``). ``tensors``
+    are the ones a map is encoded over: the bf16 inputs and outputs.
+    float32 calls run the CUDA-core kernels, which need no alignment."""
+    if tensors[0].dtype != torch.bfloat16:
         return
     bad = [i for i, t in enumerate(tensors) if t.data_ptr() % 16]
     if bad:
@@ -348,7 +333,7 @@ def _bh_fwd(name, public, plain, q, k, v, kv_bias, sm_scale, q_offset, causal):
         return plain(q, k, v, kv_bias, sm_scale, q_offset, causal)
     _forward_only(name, public, (q, k, v, kv_bias))
     out = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, out), dh)
+    _check_tma_aligned(name, (q, k, v, out))
     lse = torch.empty((bh, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (bh, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -368,7 +353,8 @@ def band_attn_blocked_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
 def band_attn_bh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
                      causal: bool = True):
     """B4f, the whole-tile kernel in [BH, L, Dh] layout; shapes as
-    ``band_attn_blocked_fwd``."""
+    ``band_attn_blocked_fwd``. On the tensor cores for bf16 (every bf16
+    tensor 16-byte aligned), on the CUDA cores for float32."""
     return _bh_fwd("band_attn_bh_fwd", "fused_band_attention",
                    band_attn_bh_fwd_plain, q, k, v, kv_bias, sm_scale,
                    q_offset, causal)
@@ -393,7 +379,7 @@ def band_attn_blocked_bwd_dq(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
         return band_attn_blocked_bwd_dq_plain(q, k, v, kv_bias, do, lse, delta,
                                               sm_scale, q_offset, causal)
     dq = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, do, dq), dims[-1])
+    _check_tma_aligned(name, (q, k, v, do, dq))
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dq
@@ -410,7 +396,7 @@ def band_attn_blocked_bwd_dkv(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
         return band_attn_blocked_bwd_dkv_plain(q, k, v, kv_bias, do, lse, delta,
                                                sm_scale, q_offset, causal)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _check_tma_aligned(name, (q, k, v, do, dk, dv), dims[-1])
+    _check_tma_aligned(name, (q, k, v, do, dk, dv))
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dk, dv),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dk, dv
@@ -427,7 +413,7 @@ def band_attn_bh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
         return band_attn_bh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
                                       sm_scale, q_offset, causal)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv), dims[-1])
+    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv))
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
             (*dims, q_offset, int(causal)), sm_scale, q.dtype)
     return dq, dk, dv
@@ -455,7 +441,7 @@ def band_attn_mh_fwd(q, k, v, kv_bias, sm_scale: float, q_offset: int,
                                       causal, h)
     _forward_only(name, "fused_mh_band_attention", (q, k, v))
     out = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, out), dh)
+    _check_tma_aligned(name, (q, k, v, out))
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kv_bias, out, lse),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -467,8 +453,8 @@ def band_attn_mh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
     """B3b: (dq, dk, dv) of the model-layout kernel. Forward inputs as
     ``band_attn_mh_fwd``, do [B, Lq, H·Dh] in q's dtype, lse and delta
     [B, H, Lq] float32. One call runs the dq and the dkv pass: on the
-    tensor cores for bf16 at Dh 128 (every bf16 tensor 16-byte aligned),
-    on the CUDA cores otherwise."""
+    tensor cores for bf16 (every bf16 tensor 16-byte aligned), on the CUDA
+    cores for float32."""
     name = "band_attn_mh_bwd"
     b, lq, lkv, dh = _mh_shapes(name, q, k, v, kv_bias, h)
     _grad_shapes(name, q, do, lse, delta, (b, h, lq))
@@ -476,7 +462,7 @@ def band_attn_mh_bwd(q, k, v, kv_bias, do, lse, delta, sm_scale: float,
         return band_attn_mh_bwd_plain(q, k, v, kv_bias, do, lse, delta,
                                       sm_scale, q_offset, causal, h)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv), dh)
+    _check_tma_aligned(name, (q, k, v, do, dq, dk, dv))
     _launch(name, (q, k, v, kv_bias, do, lse, delta, dq, dk, dv),
             (b, h, lq, lkv, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return dq, dk, dv
@@ -504,7 +490,7 @@ def band_attn_segkv_fwd(q, k, v, kns, vns, s_bias, sm_scale: float,
                                          q_offset, causal, h)
     _forward_only(name, "fused_mhseg_band_attention", (q, k, v, kns, vns))
     out = torch.empty_like(q)
-    _check_tma_aligned(name, (q, k, v, kns, vns, out), dh)
+    _check_tma_aligned(name, (q, k, v, kns, vns, out))
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     _launch(name, (q, k, v, kns, vns, s_bias, out, lse),
             (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)
@@ -518,8 +504,8 @@ def band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse, delta,
     inputs as ``band_attn_segkv_fwd``, do [B, Lq, H·Dh] in q's dtype, lse
     and delta [B, H, Lq] float32. The S and NS key gradients come back as
     separate tensors; one call runs the dq and the dkv pass: on the tensor
-    cores for bf16 at Dh 128 (every bf16 tensor 16-byte aligned), on the
-    CUDA cores otherwise."""
+    cores for bf16 (every bf16 tensor 16-byte aligned), on the CUDA cores
+    for float32."""
     name = "band_attn_segkv_bwd"
     b, lq, ls, n, dh = _seg_shapes(name, q, k, v, kns, vns, s_bias, h)
     _grad_shapes(name, q, do, lse, delta, (b, h, lq))
@@ -527,7 +513,7 @@ def band_attn_segkv_bwd(q, k, v, kns, vns, s_bias, do, lse, delta,
         return band_attn_segkv_bwd_plain(q, k, v, kns, vns, s_bias, do, lse,
                                          delta, sm_scale, q_offset, causal, h)
     grads = tuple(torch.empty_like(t) for t in (q, k, v, kns, vns))
-    _check_tma_aligned(name, (q, k, v, kns, vns, do, *grads), dh)
+    _check_tma_aligned(name, (q, k, v, kns, vns, do, *grads))
     _launch(name, (q, k, v, kns, vns, s_bias, do, lse, delta, *grads),
             (b, h, lq, ls, n, dh, q_offset, int(causal)), sm_scale, q.dtype)
     return grads

@@ -494,26 +494,38 @@ def test_every_preset_head_width_meets_the_tma_row_stride():
 
 def test_tma_alignment_check_rejects_an_unaligned_tensor():
     q = torch.zeros(4, 8, 64, dtype=torch.bfloat16)
-    tfa._check_tma_aligned("band_attn_mh_fwd", (q, q[1:], q, q), 64)
+    tfa._check_tma_aligned("band_attn_mh_fwd", (q, q[1:], q, q))
     flat = torch.zeros(4 * 8 * 64 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(4, 8, 64)  # 2 bytes past an aligned address
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tfa._check_tma_aligned("band_attn_mh_fwd", (q, shifted, q, q), 64)
+        tfa._check_tma_aligned("band_attn_mh_fwd", (q, shifted, q, q))
 
 
-@pytest.mark.parametrize("name, dtype", [("band_attn_bh_fwd", torch.bfloat16),
+@pytest.mark.parametrize("name, dtype", [("band_attn_bh_fwd", torch.float32),
                                          ("band_attn_blocked_fwd", torch.float32),
                                          ("band_attn_mh_fwd", torch.float32)])
 def test_tma_alignment_check_spares_calls_that_use_no_tma(name, dtype):
-    """B4f and every float32 call run the CUDA-core kernel, which reads no
-    tensor map, so an unaligned tensor passes there."""
+    """Every float32 call runs the CUDA-core kernel, which reads no tensor
+    map, so an unaligned tensor passes there."""
     flat = torch.zeros(4 * 8 * 64 + 1, dtype=dtype)
     shifted = flat[1:].view(4, 8, 64)
-    tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted), 64)
+    tfa._check_tma_aligned(name, (shifted, shifted, shifted, shifted))
 
 
-# the backwards whose bf16 calls take the tensor-core passes at every width
-_EVERY_WIDTH_BWD = ("band_attn_blocked_bwd_dq", "band_attn_blocked_bwd_dkv", "band_attn_bh_bwd")
+def _assert_each_unaligned_tensor_refused(name, n_tensors, dh):
+    """One unaligned bf16 tensor among the ``n_tensors`` of a call is
+    refused, wherever it stands; the same tensors in float32 pass."""
+    flat = torch.zeros(4 * 8 * dh + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(4, 8, dh)
+    aligned = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
+    for i in range(n_tensors):
+        tensors = [aligned] * n_tensors
+        tensors[i] = shifted
+        with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
+            tfa._check_tma_aligned(name, tuple(tensors))
+        tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
+                                             flat.float()[1:].view(4, 8, dh)
+                                             for t in tensors))
 
 
 @pytest.mark.parametrize("name, n_tensors", [("band_attn_mh_bwd", 7),
@@ -522,28 +534,13 @@ _EVERY_WIDTH_BWD = ("band_attn_blocked_bwd_dq", "band_attn_blocked_bwd_dkv", "ba
                                              ("band_attn_blocked_bwd_dq", 5),
                                              ("band_attn_bh_bwd", 7)])
 def test_tma_alignment_check_covers_the_tensor_core_backwards(name, n_tensors):
-    """The bf16 calls of B4b, B2dq and B2dkv at every head width, and those
-    of B1b and B3b at Dh 128, encode a tensor map over every bf16 input and
-    output (q, k, v[, kns, vns], dO, and the gradients they compute), so one
-    unaligned tensor among them is refused; float32 calls, and B1b and B3b
-    at other head widths, run the CUDA-core passes, which read no tensor
-    map."""
-    flat = torch.zeros(4 * 8 * 128 + 1, dtype=torch.bfloat16)
-    shifted = flat[1:].view(4, 8, 128)
-    aligned = torch.zeros(4, 8, 128, dtype=torch.bfloat16)
-    for i in range(n_tensors):
-        tensors = [aligned] * n_tensors
-        tensors[i] = shifted
-        with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
-            tfa._check_tma_aligned(name, tuple(tensors), 128)
-        if name in _EVERY_WIDTH_BWD:
-            with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
-                tfa._check_tma_aligned(name, tuple(tensors), 64)
-        else:
-            tfa._check_tma_aligned(name, tuple(tensors), 64)
-        tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
-                                             flat.float()[1:].view(4, 8, 128)
-                                             for t in tensors), 128)
+    """The bf16 calls of every backward, at every head width (here Dh 128
+    and 64), encode a tensor map over every bf16 input and output (q, k,
+    v[, kns, vns], dO, and the gradients they compute), so one unaligned
+    tensor among them is refused; float32 calls run the CUDA-core passes,
+    which read no tensor map."""
+    for dh in (128, 64):
+        _assert_each_unaligned_tensor_refused(name, n_tensors, dh)
 
 
 @pytest.mark.parametrize("dh", tfa._KERNEL_DH)
@@ -551,18 +548,16 @@ def test_tma_alignment_check_covers_the_segmented_forward(dh):
     """The bf16 calls of B1f encode a tensor map over q, k, v, kns, vns and
     out at every head width, so one unaligned tensor among the six is
     refused; its float32 calls run the CUDA-core kernel and are spared."""
-    name = "band_attn_segkv_fwd"
-    flat = torch.zeros(4 * 8 * dh + 1, dtype=torch.bfloat16)
-    shifted = flat[1:].view(4, 8, dh)
-    aligned = torch.zeros(4, 8, dh, dtype=torch.bfloat16)
-    for i in range(6):
-        tensors = [aligned] * 6
-        tensors[i] = shifted
-        with pytest.raises(ValueError, match=rf"tensors \[{i}\] .*16-byte aligned"):
-            tfa._check_tma_aligned(name, tuple(tensors), dh)
-        tfa._check_tma_aligned(name, tuple(t.float() if t is aligned else
-                                             flat.float()[1:].view(4, 8, dh)
-                                             for t in tensors), dh)
+    _assert_each_unaligned_tensor_refused("band_attn_segkv_fwd", 6, dh)
+
+
+@pytest.mark.parametrize("dh", tfa._KERNEL_DH)
+def test_tma_alignment_check_covers_the_bh_forward(dh):
+    """The bf16 calls of B4f run the tensor-core forward at every head
+    width and encode a tensor map over q, k, v and out, so one unaligned
+    tensor among the four is refused; its float32 calls run the CUDA-core
+    kernel and are spared."""
+    _assert_each_unaligned_tensor_refused("band_attn_bh_fwd", 4, dh)
 
 
 def test_backward_wrappers_reject_bad_statistics():

@@ -7,15 +7,14 @@
   otherwise, and raise without it;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
-- the bf16 calls of B2f, B3f and B1f, and only theirs, reach the
+- the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
   tensor-core kernel of ``band_attention_fwd_sm90.cuh``, at every head width
   the kernels are instantiated for (B1f with its NS segment's maps); their
-  float32 calls stay on the CUDA-core kernel;
-- the bf16 calls of B4b reach both tensor-core passes of
+  float32 calls stay on the CUDA-core kernel, which is float32 only;
+- the bf16 calls of B4b, B1b and B3b reach both tensor-core passes of
   ``band_attention_bwd_sm90.cuh`` and those of B2dq and B2dkv its dq and its
-  dkv pass alone, at every head width; those of B1b and B3b reach both
-  passes at Dh 128, the only width their dispatchers send; float32 calls
-  stay on the CUDA-core passes;
+  dkv pass alone, at every head width; float32 calls stay on the CUDA-core
+  passes, which are float32 only;
 - the tensor-core backward encodes the maps of, and launches, only the
   passes a call names.
 """
@@ -41,7 +40,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommend_tpu")
 
 def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py"]
+        ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
+        ROOT / "profile_kernels.py"]
 
 
 def _imported_modules(path: Path):
@@ -178,6 +178,17 @@ def _entry_body(src: str, name: str) -> str:
     raise AssertionError(f"{name}: unbalanced body")
 
 
+def _block_after(src: str, opener: str) -> str:
+    """The brace-balanced block that follows ``opener`` in ``src``."""
+    start = src.index("{", src.index(opener))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"{opener}: unbalanced block")
+
+
 def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     common = (_build.CSRC / "band_attention_common.cuh").read_text()
     sm90 = (_build.CSRC / "band_attention_sm90_common.cuh").read_text()
@@ -198,11 +209,14 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
     # the forwards' source includes it; the backward's does not
     assert '#include "band_attention_fwd_sm90.cuh"' in fwd
     assert "band_attention_fwd_sm90" not in (_build.CSRC / "band_attention_bwd.cu").read_text()
-    # dtype 0 goes to band_attn_kernel<float, DH>, 1 to band_attn_kernel<bf16, DH>
-    launch = fwd[fwd.index("int launch(const Args& a"):]
-    assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, s);" in launch
-    assert "band_attn_kernel<T, DH><<<" in fwd
-    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd", "band_attn_segkv_fwd"):
+    # launch() runs band_attn_kernel<DH>, float32 only: no source instantiates
+    # a CUDA-core kernel for bf16
+    launch = _block_after(fwd, "int launch(const Args& a")
+    assert "dtype" not in launch and "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)" in launch
+    assert "band_attn_kernel<DH><<<" in fwd and "template <int DH>\n__global__" in fwd
+    assert "bfloat16" not in fwd[fwd.index("namespace {"):fwd.index('extern "C"')]
+    for name in ("band_attn_blocked_fwd", "band_attn_bh_fwd", "band_attn_mh_fwd",
+                 "band_attn_segkv_fwd"):
         body = _entry_body(fwd, name)
         # bf16 returns from the tensor-core kernel before anything else runs;
         # float32 goes through launch() (code 0) and nothing else does
@@ -211,8 +225,9 @@ def test_bf16_blocked_and_mh_forwards_dispatch_to_the_tensor_core_kernel():
         rest = body[bf16.end():]
         assert "if (dtype != 0) return (int)cudaErrorInvalidValue;" in rest, name
         assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
-    body = _entry_body(fwd, "band_attn_bh_fwd")
-    assert "sm90" not in body and "return launch(a," in body
+    # B2f's and B4f's [BH, L, Dh] is H = 1
+    for name in ("band_attn_blocked_fwd", "band_attn_bh_fwd"):
+        assert _fwd_bf16_args(_entry_body(fwd, name))[8:10] == ["bh", "1"], name
 
 
 def _fwd_bf16_args(body: str):
@@ -225,8 +240,8 @@ def test_the_segmented_forward_passes_its_ns_segment_and_the_others_none():
     """fwd_bf16 takes (q, k, v, k2, v2, bias, out, lse, B, H, Lq, L1, L2,
     ...): B1f hands it the NS keys, values and count, so L2 > 0 picks the
     kernel instance with the second segment (SEG = true) and its two extra
-    tensor maps; B2f and B3f hand it none, and L2 = 0 picks the instance
-    without that code, the kernel they ran before."""
+    tensor maps; B2f, B4f and B3f hand it none, and L2 = 0 picks the
+    instance without that code."""
     header = (_build.CSRC / "band_attention_fwd_sm90.cuh").read_text()
     fwd = (_build.CSRC / "band_attention.cu").read_text()
     dispatch = header[header.index("inline int fwd_bf16("):]
@@ -247,7 +262,7 @@ def test_the_segmented_forward_passes_its_ns_segment_and_the_others_none():
                      r"consume_tile<DH, true>\(sm, t, key0, p\.L2, p\.Lkv \+ key0,", kernel)
     seg = _fwd_bf16_args(_entry_body(fwd, "band_attn_segkv_fwd"))
     assert seg[3:5] == ["kns", "vns"] and seg[11:13] == ["ls", "n"], seg
-    for name in ("band_attn_blocked_fwd", "band_attn_mh_fwd"):
+    for name in ("band_attn_blocked_fwd", "band_attn_bh_fwd", "band_attn_mh_fwd"):
         args = _fwd_bf16_args(_entry_body(fwd, name))
         assert args[3:5] == ["nullptr", "nullptr"] and args[12] == "0", (name, args)
 
@@ -270,6 +285,26 @@ def test_chip_smoke_holds_the_bf16_blocked_forward_at_every_head_width():
             "ptxas info : Compiling entry function '_ZN9band_attn4sm9025band_attn_fwd_sm90_"
             f"kernelILi128ELb{seg}EEEvN8CUtensorMapES2_S2_S2_S2_S2_NS0_6ParamsE' for 'sm_90a'")
         assert label == f"band_attn_fwd_sm90_kernel<128, {word}>"
+
+
+def test_chip_smoke_holds_the_bf16_bh_forward_at_its_heaviest_shape_and_every_width():
+    """B4f's bf16 calls run the tensor-core forward, which tiles each width
+    of _KERNEL_DH its own way: the card check holds it first at its heaviest
+    main-path shape (TC's layer 0, the shape its JSON entry reports), then
+    at serving C's shapes, at the edges of the tiling and at every width."""
+    import chip_smoke
+
+    shapes = dict((name, s) for name, _, s in chip_smoke.KERNELS)["band_attn_bh_fwd"]
+    assert shapes[0] == dict(b=2048, h=1, lq=181, ls=362, n=0, dh=64)
+    assert dict(b=512, h=1, lq=103, ls=206, n=0, dh=64) in shapes  # C's batch forward
+    assert {s["dh"] for s in shapes} == set(tfa._KERNEL_DH)
+    assert all(s["h"] == 1 and s["n"] == 0 and s["ls"] <= tfa.FUSED_MAX_KV for s in shapes)
+    assert any(s["lq"] < 64 for s in shapes)  # one query tile, rows past Lq
+    assert any(s["lq"] > 64 and s["lq"] % 64 for s in shapes)  # a partial last query tile
+    assert any(s["ls"] % 64 for s in shapes)  # the last key tile zero-filled
+    assert any(not s.get("causal", True) for s in shapes)  # the band off
+    assert any(s["b"] > 1 for s in shapes)  # make_inputs pads row 0 when n = 0
+    assert chip_smoke.SOURCE["band_attn_bh_fwd"].endswith("band_attention_fwd_sm90.cuh")
 
 
 def test_chip_smoke_holds_the_bf16_segmented_forward_at_its_edges():
@@ -347,10 +382,10 @@ def test_chip_smoke_holds_the_bf16_bh_backward_at_every_width_and_blocked_dq_at_
 
 
 def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes():
-    """B1b and B3b reach both tensor-core passes at Dh 128 (the only width
-    their dispatchers send), B4b both passes and B2dq/B2dkv one pass each at
-    every width of the switch in bwd_bf16; float32 stays on the CUDA-core
-    passes."""
+    """B1b, B3b and B4b reach both tensor-core passes and B2dq/B2dkv one
+    pass each, at every width of the switch in bwd_bf16 (B1b and B3b no
+    longer at Dh 128 alone); float32 stays on the CUDA-core passes, which
+    are float32 only."""
     header = (_build.CSRC / "band_attention_bwd_sm90.cuh").read_text()
     bwd = (_build.CSRC / "band_attention_bwd.cu").read_text()
     # the backward's source includes the tensor-core passes, which share the
@@ -375,20 +410,20 @@ def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes
     assert "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_SM90_CASE)" in dispatch
     assert "default: return (int)cudaErrorInvalidValue;" in dispatch
     assert "launch_bwd<128>" not in header
-    routes = (("band_attn_segkv_bwd", "if (dtype == 1 && dh == 128)", "DQ | DKV"),
-              ("band_attn_mh_bwd", "if (dtype == 1 && dh == 128)", "DQ | DKV"),
-              ("band_attn_bh_bwd", "if (dtype == 1)", "DQ | DKV"),
-              ("band_attn_blocked_bwd_dq", "if (dtype == 1)", "DQ"),
-              ("band_attn_blocked_bwd_dkv", "if (dtype == 1)", "DKV"))
-    for name, guard, passes in routes:
+    routes = (("band_attn_segkv_bwd", "DQ | DKV"), ("band_attn_mh_bwd", "DQ | DKV"),
+              ("band_attn_bh_bwd", "DQ | DKV"), ("band_attn_blocked_bwd_dq", "DQ"),
+              ("band_attn_blocked_bwd_dkv", "DKV"))
+    for name, passes in routes:
         body = _entry_body(bwd, name)
-        # the tensor-core route returns before anything else runs; float32
-        # (and B1b/B3b at other widths) goes through launch()
-        route = re.search(rf"{re.escape(guard)}[^;]*?return sm90::bwd_bf16\(", body)
+        # the tensor-core route returns before anything else runs, with no
+        # width guard; float32 (code 0) goes through launch(), and nothing
+        # else does
+        route = re.search(r"if \(dtype == 1\)[^;]*?return sm90::bwd_bf16\(", body)
         assert route and route.start() == body.index("if ("), name
         call, rest = body[route.end():].split(";", 1)
         # the passes it names: both, or one pass alone
         assert re.search(rf",\s*{re.escape(passes)}, stream\)$", call), (name, call)
+        assert "if (dtype != 0) return (int)cudaErrorInvalidValue;" in rest, name
         assert rest.count("return launch(a,") == 1 and "sm90" not in rest, name
     # [BH, L, Dh] is H = 1 with no NS segment; B2dq passes no dk/dv, B2dkv
     # no dq, B4b all three
@@ -400,21 +435,15 @@ def test_bf16_segkv_and_mh_backwards_at_dh128_dispatch_to_the_tensor_core_passes
         assert args[3:5] == ["nullptr", "nullptr"], (name, args)
         assert args[9:16] == [*outs, "nullptr", "nullptr", "bh", "1"], (name, args)
         assert args[18] == "0", (name, args)
-    # launch() keeps both dtypes on the CUDA-core passes
-    launch = bwd[bwd.index("int launch(const BwdArgs& a"):]
-    assert "if (dtype == 0) return (int)launch_dh<float>(a, B, dh, passes, s);" in launch
-    assert "if (dtype == 1) return (int)launch_dh<__nv_bfloat16>(a, B, dh, passes, s);" in launch
-
-
-def _block_after(src: str, opener: str) -> str:
-    """The brace-balanced block that follows ``opener`` in ``src``."""
-    start = src.index("{", src.index(opener))
-    depth = 0
-    for i in range(start, len(src)):
-        depth += {"{": 1, "}": -1}.get(src[i], 0)
-        if depth == 0:
-            return src[start:i + 1]
-    raise AssertionError(f"{opener}: unbalanced block")
+    # launch() runs the float32 passes alone: no bf16 instance of the
+    # CUDA-core passes is compiled
+    launch = _block_after(bwd, "int launch(const BwdArgs& a")
+    assert "dtype" not in launch and "BAND_ATTN_FOR_EACH_DH(BAND_ATTN_CASE)" in launch
+    for kernel in ("band_attn_bwd_dq_kernel", "band_attn_bwd_dkv_kernel"):
+        assert re.search(rf"template <int DH>\s*__global__ void __launch_bounds__\(NT\) "
+                         rf"{kernel}\(", bwd), kernel
+        assert f"{kernel}<DH><<<" in bwd, kernel
+    assert "bfloat16" not in bwd[bwd.index("namespace {"):bwd.index('extern "C"')]
 
 
 def test_the_tensor_core_backward_encodes_and_launches_only_the_named_passes():
@@ -446,8 +475,10 @@ def test_the_tensor_core_backward_encodes_and_launches_only_the_named_passes():
 
 
 def test_chip_smoke_holds_the_tensor_core_backwards_at_their_edges():
-    """The tensor-core passes tile each key segment on its own; the card
-    check reaches each edge of that tiling for B1b and B3b, in bf16 and f32."""
+    """The tensor-core passes tile each key segment on its own, and each
+    width its own way; the card check reaches each edge of that tiling for
+    B1b and B3b, in bf16 and f32, at Dh 128 and at Dh 64, 96, 48 and 16
+    with several heads (a head's columns start at h·Dh)."""
     import chip_smoke
 
     shapes = dict((name, s) for name, _, s in chip_smoke.BWD_KERNELS)
@@ -456,7 +487,8 @@ def test_chip_smoke_holds_the_tensor_core_backwards_at_their_edges():
     assert shapes["band_attn_segkv_bwd"][0] == dict(b=512, h=2, lq=181, ls=350, n=12, dh=128)
     for name in ("band_attn_segkv_bwd", "band_attn_mh_bwd"):
         edges = shapes[name]
-        assert all(s["dh"] == 128 and s["h"] * s["dh"] * 2 % 16 == 0 for s in edges), name
+        assert all(s["h"] * s["dh"] * 2 % 16 == 0 for s in edges), name
+        assert {s["dh"] for s in edges if s["h"] > 1} >= {128, 64, 96, 48, 16}, name
         assert any(s["lq"] < 64 for s in edges), name  # one query tile, rows past Lq
         assert any(s["ls"] % 64 for s in edges), name  # the last S tile zero-filled
         assert any(not s.get("causal", True) for s in edges), name  # the band off
