@@ -60,15 +60,34 @@ Phases, in order; any failure raises and exits non-zero:
    ``score_session`` against ``score_request`` at a re-anchor (bf16 and
    float32) and, without pruning, a refresh/append/fold/append chain
    against ``score_request`` in float32;
-8. print the kernels' JSON line, then the result line.
+8. K, the deployment loop at TA's config (dropout 0.1): a ``RankingTrainer``
+   with ``checkpoint_dir`` (under build/, two kept) and a ``PushTracker``
+   takes 2 steps and saves; engine E0 starts ``from_checkpoint`` and opens
+   sessions; a new trainer restores step 2 and trains to step 4, held
+   against an unbroken 0-4 run (loss 1e-6 relative, every parameter 1e-5 of
+   its largest |value|; the sums run in a fixed order, so 0 is expected); the push
+   of steps 2->4 makes E0's state dict equal the step-4 checkpoint's bit for
+   bit, its requests the step-4 engine's (1e-6) and its refreshed sessions
+   its requests (bf16, 1e-2); a push with a wrong shape raises and leaves
+   E0's scores as they were. Prints checkpoint and push bytes and seconds,
+   then deletes the checkpoints;
+9. D: ``RankingTrainer(model=DINRankingModel(cfg))`` at the same config (3
+   warm-up and N_DIN timed steps, finite loss, no kernel launch), one
+   float32 DIN step on the card against the CPU at batch 32 (1e-5);
+   ``RankingEvaluator.evaluate`` of DIN and of K's step-4 OneTrans on the same
+   4 validation batches (AUC, UAUC, throughput); ``latency_benchmark`` of
+   ``score_request``; TA's MFU against the H100's dense bf16 peak;
+10. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 0
 N_CANDIDATES = 100
@@ -827,6 +846,7 @@ def train_phase(label, heads, items, batch_size, per_step, fa, totals):
         f"setup {setup_s:.1f} s [{CARD}]")
     del params
     torch.cuda.empty_cache()
+    return ex_s
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1104,312 @@ def session_phase(fa, totals):
         f"| setup {setup_s:.1f} s [{CARD}]")
 
 
+# ---------------------------------------------------------------------------
+# phase K: trainer -> checkpoint -> engine -> push
+# ---------------------------------------------------------------------------
+
+K_ITEMS, K_BATCH = 116, 512  # TA's items per sequence and batch
+K_WINDOW, K_HISTORY, K_SESSIONS = 64, 48, 4  # the engines: phase A's serving shape
+# A resumed run against an unbroken one on the card. The sparse update sums
+# duplicate lookups per segment of the sorted ids, with no atomics
+# (ops/sparse_embed.py), so the two runs agree bit for bit; summed with
+# CUDA's atomic index_add_ they differed by 1.4e-4 in the loss in one of
+# three runs of this phase on an H100.
+K_RESUME_LOSS_TOL = 1e-6  # relative
+K_RESUME_PARAM_TOL = 1e-5  # of each parameter's largest |value|
+K_DIR = Path(__file__).resolve().parent / "build" / "phase_k"
+
+
+def timed(obj, name, seconds):
+    """Wrap ``obj.name`` so that each call appends its seconds to
+    ``seconds``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def checkpoint_phase(fa, totals):
+    """K: train 2 steps with checkpoints and a push tracker, start engine E0
+    from the checkpoint and open sessions on it, resume to step 4 in a new
+    trainer, hold the resumed run against an unbroken one, push steps 2->4
+    into E0 (bit for bit against an engine from the step-4 checkpoint), and
+    refuse a malformed push. Returns (config, the step-4 engine, the
+    training batches) for phase D."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.serving.param_push import (
+        PushTracker, build_push, load_push, push_nbytes, save_push, table_keys)
+    from recommend_tpu_torch.serving.ranking_service import RankingInferenceEngine
+    from recommend_tpu_torch.training.checkpoint import CheckpointManager
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    t0 = time.perf_counter()
+    cfg = training_config(2, K_BATCH, dropout_rate=0.1)  # TA's config, dropout on
+    per_step = TRAIN_PHASES[0][4]  # TA's launches per step
+    data = make_ranking_data(cfg, num_samples=4 * K_BATCH, max_seq_per_feature=K_ITEMS,
+                             seed=SEED)
+    it = ranking_batches(data, cfg, batch_size=K_BATCH, seed=SEED)
+    batches = [next(it) for _ in range(4)]
+    reqs = make_requests(cfg, np.random.default_rng(SEED), K_SESSIONS, K_HISTORY)
+    shutil.rmtree(K_DIR, ignore_errors=True)
+    ck = str(K_DIR)
+    tracker = PushTracker(cfg)
+    save_s, restore_s = [], []
+
+    def trainer():
+        tr = RankingTrainer(cfg, checkpoint_dir=ck, max_to_keep=2, device="cuda")
+        timed(tr.ckpt, "save", save_s)
+        return tr
+
+    def add(got):
+        for k in got:
+            totals[k] += got[k]
+
+    # 1. save: two steps, saved at the end; E0 starts from that checkpoint
+    t1 = trainer()
+    _, got = counted(fa, lambda: t1.train(tracker.wrap(iter(batches[:2])), 2, log_every=1),
+                     per_step, 2)
+    add(got)
+    tracker.snapshot()  # the push's window starts at step 2
+    del t1
+    ck_bytes = os.path.getsize(CheckpointManager(ck).path(2))
+    t = time.perf_counter()
+    e0 = RankingInferenceEngine.from_checkpoint(ck, max_seq_len=K_WINDOW, device="cuda")
+    torch.cuda.synchronize()
+    engine_load_s = time.perf_counter() - t
+
+    def open_sessions():
+        for i, (_, seqs, _) in enumerate(reqs):
+            e0.update_session(f"s{i}", seqs)
+
+    add(counted(fa, open_sessions, {"band_attn_mh_fwd": 1}, K_SESSIONS)[1])
+
+    # 2. resume to step 4, against steps 0-4 without a break
+    t2 = trainer()
+    timed(t2.ckpt, "restore", restore_s)
+    state2, got = counted(fa, lambda: t2.train(tracker.wrap(iter(batches[2:])), 4,
+                                               log_every=1), per_step, 2)
+    add(got)
+    assert [h["step"] for h in t2.history["train"]] == [3, 4], t2.history["train"]
+    assert CheckpointManager(ck).steps() == [2, 4]
+    t3 = RankingTrainer(cfg, device="cuda")
+    state3, got = counted(fa, lambda: t3.train(iter(batches), 4, log_every=1), per_step, 4)
+    add(got)
+    loss2, loss3 = t2.history["train"][-1]["loss"], t3.history["train"][-1]["loss"]
+    loss_err = abs(loss2 - loss3) / abs(loss3)
+    param_err = max(((state2.params[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                    for k, v in state3.params.items())
+    assert loss_err <= K_RESUME_LOSS_TOL, f"K: resumed loss differs by {loss_err}"
+    assert param_err <= K_RESUME_PARAM_TOL, f"K: resumed params differ by {param_err}"
+    del t3, state3
+
+    # 3. push steps 2->4 into E0, whose sessions are open
+    push = build_push(state2.params, tracker.snapshot(), step=4)
+    push_path = os.path.join(ck, "push_4.npz")
+    push_bytes = save_push(push, push_path)
+    tables = table_keys(cfg)
+    loaded = load_push(push_path, e0.state_dict(), tables)
+    del t2, state2, push
+    t = time.perf_counter()
+    _, got = counted(fa, lambda: e0.apply_push(loaded), {"band_attn_mh_fwd": 1}, K_SESSIONS)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t
+    add(got)
+    e4 = RankingInferenceEngine.from_checkpoint(ck, max_seq_len=K_WINDOW, device="cuda")
+    mine, ref = e0.state_dict(), e4.state_dict()
+    assert set(mine) == set(ref)
+    unequal = [k for k in ref if not torch.equal(mine[k], ref[k])]
+    assert not unequal, f"K: pushed state differs from step 4's in {unequal}"
+
+    def score_both():
+        return [(e0.score_request(*r), e4.score_request(*r)) for r in reqs]
+
+    pairs, got = counted(fa, score_both, {"band_attn_mh_fwd": 2}, K_SESSIONS)
+    add(got)
+    push_err = max(max_diff(a, b, cfg.tasks) for a, b in pairs)
+    assert push_err <= 1e-6, f"K: pushed engine vs step-4 engine {push_err}"
+    sess_err = max(max_diff(e0.score_session(f"s{i}", user, cands), pairs[i][0], cfg.tasks)
+                   for i, (user, _, cands) in enumerate(reqs))
+    assert sess_err <= BF16_BATCH_TOL, f"K: refreshed session vs request {sess_err}"
+    t = time.perf_counter()
+    e4.reload(checkpoint_dir=ck)
+    torch.cuda.synchronize()
+    reload_s = time.perf_counter() - t
+
+    # 4. a malformed push raises and leaves E0 as it was
+    name = next(k for k in loaded["dense"] if k.startswith("blocks."))
+    bad = dict(loaded, dense=dict(loaded["dense"], **{name: loaded["dense"][name][:-1]}))
+    bad_path = os.path.join(ck, "push_bad.npz")
+    save_push(bad, bad_path)
+    for attempt in (lambda: e0.apply_push(bad),
+                    lambda: e0.apply_push(load_push(bad_path, e0.state_dict(), tables))):
+        try:
+            attempt()
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("K: a malformed push was applied")
+    after, got = counted(fa, lambda: [e0.score_request(*r) for r in reqs],
+                         {"band_attn_mh_fwd": 1}, K_SESSIONS)
+    add(got)
+    assert after == [a for a, _ in pairs], "K: a refused push changed E0's scores"
+    assert all(torch.equal(e0.state_dict()[k], ref[k]) for k in ref)
+    shutil.rmtree(K_DIR)
+
+    log(f"phase K: OneTrans-S TA config (rowwise, bf16, dropout 0.1), batch {K_BATCH}, "
+        f"{K_ITEMS} items/sequence | checkpoint {ck_bytes} bytes, save n={len(save_s)} "
+        f"{', '.join(f'{x:.3f}' for x in save_s)} s, trainer restore "
+        f"{restore_s[0]:.3f} s, engine from_checkpoint "
+        f"{engine_load_s:.3f} s | resumed vs unbroken at step 4: loss {loss_err:.2e}, "
+        f"params {param_err:.2e} | push 2->4: {push_bytes} bytes on disk "
+        f"({push_nbytes(loaded)} in memory), checkpoint/push {ck_bytes / push_bytes:.2f}x, "
+        f"apply_push {apply_s:.3f} s ({K_SESSIONS} sessions refreshed), reload "
+        f"(checkpoint_dir) {reload_s:.3f} s | pushed state == step-4 state bit for bit; "
+        f"score_request vs step-4 engine {push_err:.2e}, session vs request {sess_err:.2e}; "
+        f"malformed push refused, scores unchanged | setup+run "
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    del e0
+    torch.cuda.empty_cache()
+    return cfg, e4, batches, reqs
+
+
+# ---------------------------------------------------------------------------
+# phase D: the DIN baseline, offline evaluation, latency and MFU
+# ---------------------------------------------------------------------------
+
+N_DIN_WARMUP, N_DIN = 3, 10
+DIN_CHECK_BATCH = 32
+DIN_F32_LOSS_TOL = 1e-5  # relative, card against CPU
+D_USERS = 64  # users of phase D's validation stream
+
+
+def din_eval_phase(fa, totals, k_out, ta_examples_per_s):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.evaluation.benchmark import (
+        latency_benchmark, mfu, peak_flops, ranking_model_flops)
+    from recommend_tpu_torch.evaluation.ranking_eval import RankingEvaluator
+    from recommend_tpu_torch.models.din import DINRankingModel
+    from recommend_tpu_torch.models.ranking import RankingModel
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    t0 = time.perf_counter()
+    cfg, e4, batches, reqs = k_out
+    with torch.device("meta"):
+        din = DINRankingModel(cfg)
+    trainer = RankingTrainer(cfg, model=din, device="cuda")
+    state = trainer.init_state(init_params(cfg, seed=SEED, device="cuda", model=din))
+    dev = [trainer._put_batch(b) for b in batches]
+    gen = torch.Generator().manual_seed(SEED)
+    times, losses = [], []
+
+    def run():
+        nonlocal state
+        for i in range(N_DIN_WARMUP + N_DIN):
+            t = time.perf_counter()
+            state, m = trainer._train_step(state, dev[i % len(dev)], gen)
+            loss = float(m["loss"])  # waits for the step
+            if i >= N_DIN_WARMUP:
+                times.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss)
+
+    add = lambda got: [totals.__setitem__(k, totals[k] + v) for k, v in got.items()]
+    add(counted(fa, run, {}, 1)[1])  # DIN runs no kernel
+    assert all(np.isfinite(losses)), f"D: non-finite DIN loss {losses}"
+
+    # one float32 step on the card against the same step on the CPU, from
+    # the same weights, at batch DIN_CHECK_BATCH (dropout off: the card's and
+    # the CPU's generators draw different masks from one seed). The model
+    # computes in its own config's dtype, so it is built from the f32 one.
+    c32 = dataclasses.replace(cfg, use_mixed_precision=False, dropout_rate=0.0)
+    with torch.device("meta"):
+        din32 = DINRankingModel(c32)
+    small = {g: ({k: v[:DIN_CHECK_BATCH] for k, v in batches[0][g].items()})
+             for g in ("non_seq", "sequences", "seq_valid", "labels")}
+    cpu_params = init_params(c32, seed=SEED + 1, device="cpu", model=din32)
+    step_loss = {}
+    for device in ("cuda", "cpu"):
+        tr = RankingTrainer(c32, model=din32, device=device)
+        st = tr.init_state(cpu_params)
+        _, m = tr._train_step(st, tr._put_batch(small))
+        step_loss[device] = float(m["loss"])
+        del tr, st
+    del cpu_params
+    din_err = abs(step_loss["cuda"] - step_loss["cpu"]) / abs(step_loss["cpu"])
+    assert din_err <= DIN_F32_LOSS_TOL, f"D: f32 DIN step, card vs CPU {din_err}"
+
+    # offline evaluation of DIN and of phase K's step-4 OneTrans, same batches
+    val = make_ranking_data(cfg, num_samples=4 * K_BATCH, max_seq_per_feature=K_ITEMS,
+                            seed=SEED + 1)
+    val_batches = list(ranking_batches(val, cfg, batch_size=K_BATCH, seed=SEED,
+                                       num_epochs=1))[:4]
+    for b in val_batches:
+        # the generator draws each row's user from 1M: fold them onto
+        # D_USERS, so each user has impressions of both labels and UAUC is
+        # defined
+        b["non_seq"]["user_id"] = b["non_seq"]["user_id"] % D_USERS
+    with torch.device("meta"):
+        onetrans = RankingModel(cfg)
+    reports = {}
+    for label, model, params, per_batch in (
+            ("DIN", din, state.params, {}),
+            ("OneTrans", onetrans, e4.state_dict(), TRAIN_PHASES[0][4])):
+        ev = RankingEvaluator(cfg, model, params, device="cuda")
+        ev.evaluate(iter(val_batches[:1]))  # first call outside the report
+        fwd = {k: v for k, v in per_batch.items() if k.endswith("_fwd")}
+        reports[label], got = counted(fa, lambda: ev.evaluate(iter(val_batches)), fwd,
+                                      len(val_batches))
+        add(got)
+        r = reports[label]
+        assert r["num_samples"] == len(val_batches) * K_BATCH
+        assert all(0.0 <= r[f"{t}_auc"] <= 1.0 for t in cfg.tasks), r
+
+    # latency of score_request on the step-4 engine
+    user, seqs, cands = reqs[0]
+    lat, got = counted(fa, lambda: latency_benchmark(
+        lambda: e4.score_request(user, seqs, cands), n_iters=50, warmup=5,
+        batch_size=N_CANDIDATES, device="cuda"), {"band_attn_mh_fwd": 55}, 1)
+    add(got)
+
+    # MFU of phase TA's step
+    s_len = len(cfg.sequence_features) * (K_ITEMS + 1) - 1
+    flops = ranking_model_flops(cfg, s_len, training=True)
+    ta_mfu = mfu(ta_examples_per_s, flops)
+    evals = " | ".join(
+        f"eval {label}: ctr AUC {r['ctr_auc']:.4f} UAUC {r['ctr_uauc']:.4f}, cvr AUC "
+        f"{r['cvr_auc']:.4f} UAUC {r['cvr_uauc']:.4f}, {r['throughput_samples_per_s']:.1f} "
+        f"samples/s" for label, r in reports.items())
+    log(f"phase D: DIN at the TA config (dropout 0.1), batch {K_BATCH} | train step "
+        f"n={len(times)} p50 {np.percentile(times, 50):.3f} ms p99 "
+        f"{np.percentile(times, 99):.3f} ms, loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f} | f32 step at batch {DIN_CHECK_BATCH}: card {step_loss['cuda']:.7f}, "
+        f"CPU {step_loss['cpu']:.7f}, rel {din_err:.2e} | {evals} | score_request "
+        f"latency_benchmark n=50 p50 {lat['latency_ms_p50']:.3f} ms p99 "
+        f"{lat['latency_ms_p99']:.3f} ms | TA step: {ta_examples_per_s:.1f} examples/s x "
+        f"{flops / 1e9:.4f} GFLOP/example (s_len {s_len}, training) = MFU {ta_mfu:.3f}% of "
+        f"{peak_flops() / 1e12:.1f} TFLOP/s dense bf16 | {time.perf_counter() - t0:.1f} s "
+        f"[{CARD}]")
+    del trainer, state, e4
+    torch.cuda.empty_cache()
+
+
 def ptxas_label(line: str) -> str:
     """``name<template ints and bools>`` of the kernel whose mangled name a
     ptxas 'Compiling entry function' line gives, e.g. band_attn_kernel<128>
@@ -1103,6 +1429,7 @@ def main() -> int:
     global CARD
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1144,14 +1471,18 @@ def main() -> int:
                 {"band_attn_blocked_fwd": 1, "band_attn_segkv_fwd": 3}, fa, totals)
     serve_phase("C", 4, 64, 48,
                 {"band_attn_bh_fwd": 1}, {"band_attn_bh_fwd": 1}, fa, totals)
+    examples_per_s = {}
     for label, heads, items, batch_size, per_step in TRAIN_PHASES:
-        train_phase(label, heads, items, batch_size, per_step, fa, totals)
+        examples_per_s[label] = train_phase(label, heads, items, batch_size, per_step, fa,
+                                            totals)
     s_trunk_phase(fa, totals)
     session_phase(fa, totals)
+    din_eval_phase(fa, totals, checkpoint_phase(fa, totals), examples_per_s["TA"])
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n
     torch.cuda.synchronize()
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS + BWD_KERNELS]}))
     print(json.dumps({"ok": True, "device": {

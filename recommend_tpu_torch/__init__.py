@@ -2,10 +2,12 @@
 
 The JAX package ``recommend_tpu`` is the reference; this package imports
 nothing of it. Ported so far: ranking serving (config, tokenizer, ranking
-model with its KV-cache decomposition, the inference engine), ranking
-training (data, sparse embedding updates, loss, optimizer, streaming AUC,
-``training.ranking_trainer.RankingTrainer``), and the band-attention
-kernels: four forwards in ``csrc/band_attention.cu`` and four backwards in
+model with its KV-cache decomposition, the inference engine with its
+checkpoint loading, hot reload and incremental parameter push), ranking
+training (data, sparse embedding updates, loss, optimizer, metrics,
+checkpoints, ``training.ranking_trainer.RankingTrainer``), the DCNv2+DIN
+baseline, offline evaluation, and the band-attention kernels: four
+forwards in ``csrc/band_attention.cu`` and five backwards in
 ``csrc/band_attention_bwd.cu``.
 """
 

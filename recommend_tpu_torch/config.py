@@ -2,12 +2,15 @@
 
 A copy of the ranking half of the JAX package's ``config.py``. The port keeps
 its own copy instead of importing it, so that it runs where JAX does not; the
-tests hold the two field for field (``to_dict``).
+tests hold the two field for field (``to_dict``). ``save_config`` and
+``load_config`` write and read the same plain JSON as the JAX package's, so a
+``config.json`` that the JAX trainer wrote beside its checkpoints loads here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -195,3 +198,22 @@ def get_config(name: str, **overrides) -> RankingConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def save_config(cfg, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2)
+
+
+def load_config(path: str):
+    """The config a ``save_config`` (here or in the JAX package) wrote,
+    rebuilt from the class its ``__config_class__`` names."""
+    with open(path) as f:
+        d = json.load(f)
+    name = d.get("__config_class__")
+    if name == "RetrievalConfig":
+        raise NotImplementedError(
+            f"{path}: RetrievalConfig (ROADMAP A14) is not ported yet")
+    if name != "RankingConfig":
+        raise ValueError(f"{path}: unknown __config_class__ {name!r}")
+    return RankingConfig.from_dict(d)

@@ -9,7 +9,9 @@ norm scales, tables and [SEP] token keep their layout.
 
 ``init_params`` draws a fresh state dict from a ``torch.Generator`` where no
 JAX is at hand: lecun-normal projections, normal(0.02) tables and [SEP],
-zero biases, unit norm scales, and the configured constant head bias.
+zero biases, unit norm scales, and the configured constant head bias. It
+initializes ``DINRankingModel`` by the same rules (``model=``), and
+``din_params_from_flax`` converts the JAX package's DIN tree.
 
 The trainer's state carries across too: ``params_from_flax`` maps the
 parameters, ``accums_from_flax`` the sparse-update accumulators (keyed by
@@ -21,7 +23,7 @@ zero on both sides, so the two trainers start from one state.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,6 +118,42 @@ def params_from_flax(tree: Mapping, cfg: RankingConfig) -> Dict[str, torch.Tenso
     return sd
 
 
+def din_params_from_flax(tree: Mapping, cfg: RankingConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``DINRankingModel`` params -> a state dict for the port's
+    ``DINRankingModel(cfg)``. The flax tokenizer's ``sep_token``, which DIN
+    never reads, has no counterpart."""
+    from recommend_tpu_torch.models.din import DINRankingModel
+
+    tree = tree.get("params", tree)
+    tok = tree["tokenizer"]
+    sd: Dict[str, torch.Tensor] = {}
+    for f in cfg.non_seq_features:
+        sd[f"tokenizer.embeds.{f}.weight"] = _t(tok[f"embed_{f}"]["embedding"])
+    if cfg.sequence_features:
+        sd["tokenizer.item_embed.weight"] = _t(tok["embed_seq_item"]["embedding"])
+        _linear("tokenizer.seq_proj", tok["seq_proj"], sd)
+    _linear("query_proj", tree["query_proj"], sd)
+    _linear("attn_hidden", tree["attn_hidden"], sd)
+    _linear("attn_out", tree["attn_out"], sd)
+    for name, sub in tree.items():
+        for flax_prefix, port_prefix in (("cross_w_", "cross"), ("deep_", "deep")):
+            if name.startswith(flax_prefix):
+                _linear(f"{port_prefix}.{name[len(flax_prefix):]}", sub, sd)
+    for t in cfg.tasks:
+        _linear(f"heads.{t}.hidden", tree[f"head_{t}_hidden"], sd)
+        _linear(f"heads.{t}.out", tree[f"head_{t}_out"], sd)
+    with torch.device("meta"):
+        shapes = {n: p.shape for n, p in DINRankingModel(cfg).named_parameters()}
+    if set(sd) != set(shapes):
+        raise KeyError(f"converted {sorted(set(sd) - set(shapes))} not in the model, "
+                       f"model {sorted(set(shapes) - set(sd))} not converted")
+    for name, shape in shapes.items():
+        if sd[name].shape != shape:
+            raise ValueError(f"{name}: converted {tuple(sd[name].shape)}, "
+                             f"model {tuple(shape)}")
+    return sd
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
     # flax lecun_normal: truncated normal at +-2 std, variance 1/fan_in
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -123,20 +161,25 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
 
 
 @torch.no_grad()
-def init_params(cfg: RankingConfig, seed: int = 0,
-                device=None) -> Dict[str, torch.Tensor]:
-    """A fresh state dict for ``RankingModel(cfg)``, drawn on ``device`` from
-    a ``torch.Generator`` seeded with ``seed``. ``device`` is CUDA unless the
-    caller names another; with none named and no CUDA available it raises."""
+def init_params(cfg: RankingConfig, seed: int = 0, device=None,
+                model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """A fresh state dict for ``model`` (``RankingModel(cfg)`` by default;
+    e.g. ``DINRankingModel(cfg)``, whose layers follow the same rules),
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+    Only the model's parameter names and shapes are read, so it may sit on
+    the meta device. ``device`` is CUDA unless the caller names another;
+    with none named and no CUDA available it raises."""
     device = resolve_device(device, "init_params")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    with torch.device("meta"):
-        model = RankingModel(cfg)
-    model = model.to_empty(device=device)
+    if model is None:
+        with torch.device("meta"):
+            model = RankingModel(cfg)
     bias0 = cfg.task_logit_bias_init or (0.0,) * len(cfg.tasks)
     head_bias = {f"heads.{t}.out.bias": b0 for t, b0 in zip(cfg.tasks, bias0)}
-    for name, p in model.named_parameters():
+    out: Dict[str, torch.Tensor] = {}
+    for name, ref in model.named_parameters():
+        p = torch.empty(ref.shape, dtype=ref.dtype, device=device)
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("norm.scale"):
             p.fill_(1.0)
@@ -149,4 +192,5 @@ def init_params(cfg: RankingConfig, seed: int = 0,
             p.normal_(0.0, 0.02, generator=gen)
         else:  # nn.Linear [out, in] and the NS stacks [n, in, out]
             _lecun_normal_(p, p.shape[1], gen)
-    return model.state_dict()
+        out[name] = p
+    return out

@@ -1,1 +1,1 @@
-"""Ranking model and unified tokenizer."""
+"""Ranking model, unified tokenizer and the DCNv2+DIN baseline."""

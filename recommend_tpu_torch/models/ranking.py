@@ -409,9 +409,7 @@ class RankingModel(nn.Module):
         [..., n, d]: the shared item table and projection, per item and
         position-independent, so an append-only cache is exact. ``sf`` names
         the sequence; every sequence shares the table."""
-        tok = self.tokenizer
-        return dense(tok.seq_proj, tok._lookup(tok.item_embed, ids),
-                     compute_dtype(self.config))
+        return self.tokenizer.seq_item_embeds(sf, ids)
 
     def extend_s_cache(
         self,
@@ -536,3 +534,30 @@ class RankingModel(nn.Module):
             x = blk.ns_call(x, k_s, v_s, sv)
         x = self.final_norm(x)
         return self._apply_heads(x[:, -1])
+
+    # -- model card ---------------------------------------------------------
+    @staticmethod
+    def param_count(params: Dict[str, torch.Tensor]) -> int:
+        return sum(int(p.numel()) for p in params.values())
+
+    def get_model_info(self, params: Dict[str, torch.Tensor],
+                       s_len: int = 350) -> Dict[str, object]:
+        """Parameter counts, dense against embedding (the id tables), and
+        the analytic forward FLOPs per sample at ``s_len`` S tokens."""
+        from recommend_tpu_torch.evaluation.benchmark import ranking_model_flops
+
+        tables = {f"{name}.weight" for name, m in self.named_modules()
+                  if isinstance(m, nn.Embedding)}
+        emb = sum(int(p.numel()) for k, p in params.items() if k in tables)
+        total = self.param_count(params)
+        cfg = self.config
+        return {
+            "total_params": total,
+            "embedding_params": emb,
+            "dense_params": total - emb,
+            "num_layers": cfg.num_layers,
+            "embed_dim": cfg.embed_dim,
+            "num_ns_tokens": cfg.num_ns_tokens,
+            "pyramid_ratios": list(cfg.pyramid_ratios),
+            "forward_gflops_per_sample": round(ranking_model_flops(cfg, s_len) / 1e9, 3),
+        }

@@ -40,7 +40,12 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 
 class UnifiedTokenizer(nn.Module):
-    def __init__(self, cfg: RankingConfig):
+    def __init__(self, cfg: RankingConfig, token_stream: bool = True):
+        """``token_stream=False`` keeps the feature tables and the sequence
+        projection alone (no ``ns_proj``, no [SEP]): the lookups that
+        ``ns_concat`` and ``seq_item_embeds`` serve to a model that builds
+        no token stream (DIN). The flax tokenizer of such a model has no
+        ``ns_proj`` either: flax creates it only when it is called."""
         super().__init__()
         self.config = cfg
         tdt = getattr(torch, cfg.embedding_table_dtype)
@@ -51,13 +56,15 @@ class UnifiedTokenizer(nn.Module):
         })
         ns_in = fe * len(cfg.non_seq_features) + sum(
             dim for _, dim in cfg.semantic_features)
-        self.ns_proj = nn.Linear(ns_in, cfg.num_ns_tokens * d)
+        if token_stream:
+            self.ns_proj = nn.Linear(ns_in, cfg.num_ns_tokens * d)
         # NS-only configs (no behavior sequences) carry no item table
         if cfg.sequence_features:
             self.item_embed = nn.Embedding(
                 cfg.vocab_size("item_id"), cfg.seq_item_feature_dim, dtype=tdt)
             self.seq_proj = nn.Linear(cfg.seq_item_feature_dim, d)
-            self.sep_token = nn.Parameter(torch.empty(d))
+            if token_stream:
+                self.sep_token = nn.Parameter(torch.empty(d))
 
     def _lookup(self, emb: nn.Embedding, ids: torch.Tensor,
                 dummy: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -83,6 +90,15 @@ class UnifiedTokenizer(nn.Module):
                 parts.append(feat)
         return torch.cat(parts, dim=-1)
 
+    def seq_item_embeds(self, sf: str, ids: torch.Tensor,
+                        dummies: Dummies = None) -> torch.Tensor:
+        """Projected item vectors [B, L, d] of one behavior sequence: the
+        shared item table and projection, no [SEP] (the unit DIN's target
+        attention pools)."""
+        dummy = None if dummies is None else dummies.get(f"seq_{sf}")
+        e = self._lookup(self.item_embed, ids, dummy)
+        return dense(self.seq_proj, e, compute_dtype(self.config))
+
     def ns_tokens(self, non_seq: Dict[str, torch.Tensor],
                   dummies: Dummies = None) -> torch.Tensor:
         """[B] int features -> [B, n_ns, d] NS tokens."""
@@ -100,15 +116,12 @@ class UnifiedTokenizer(nn.Module):
         """Per-sequence item ids [B, L_i] -> ([B, Ls, d], [B, Ls] validity),
         sequences joined with [SEP] between them."""
         cfg = self.config
-        cdt = compute_dtype(cfg)
-        dummies = dummies or {}
         toks, valids = [], []
         names = [f for f in cfg.sequence_features if f in sequences]
         for i, sf in enumerate(names):
             ids = sequences[sf]
             b = ids.shape[0]
-            e = self._lookup(self.item_embed, ids, dummies.get(f"seq_{sf}"))
-            t = dense(self.seq_proj, e, cdt)
+            t = self.seq_item_embeds(sf, ids, dummies)
             toks.append(t)
             valids.append(seq_valid[sf])
             if i < len(names) - 1:

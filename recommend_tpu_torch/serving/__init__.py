@@ -1,1 +1,1 @@
-"""Ranking inference engine."""
+"""Ranking inference engine and incremental parameter push."""

@@ -9,6 +9,16 @@ Candidate counts are padded to powers of two, as in the JAX engine, so a
 request scores the same rows there and here. Probabilities come back stacked
 [T, B] in one device-to-host copy per request.
 
+Loading and updating weights: ``from_checkpoint`` starts an engine from a
+trainer's checkpoint directory (``config.json`` and the newest
+``training/checkpoint.py`` file), ``reload`` swaps in a new state dict or
+checkpoint, and ``apply_push`` applies an incremental push
+(``serving/param_push.py``). Both validate the new weights against the
+engine's first, then write them into the engine's own tensors (``copy_``;
+a push's rows with ``index_copy_``): a malformed update leaves the engine
+as it was, and the tensors' addresses never change. Live sessions are
+re-encoded under the new weights.
+
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with no
 device given and no CUDA available it raises.
 """
@@ -23,8 +33,11 @@ import numpy as np
 import torch
 
 from recommend_tpu_torch._device import resolve_device
-from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.config import RankingConfig, load_config
+from recommend_tpu_torch.convert import table_param_names
 from recommend_tpu_torch.models.ranking import RankingModel
+from recommend_tpu_torch.serving import param_push
+from recommend_tpu_torch.training.checkpoint import CheckpointManager
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -92,6 +105,82 @@ class RankingInferenceEngine:
         # spare rows of every session cache, filled by the folds between
         # two re-anchors
         self._pad_rows = refresh_every_compactions * slack
+
+    # -- loading ------------------------------------------------------------
+    @staticmethod
+    def _restore_params(checkpoint_dir: str, device) -> Tensors:
+        restored = CheckpointManager(checkpoint_dir).restore(map_location=device)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+        return restored.params
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str, max_seq_len: int = 64, device=None,
+                        **kwargs) -> "RankingInferenceEngine":
+        """An engine on the newest checkpoint of a trainer's
+        ``checkpoint_dir``, with the config of its ``config.json``."""
+        device = resolve_device(device, "RankingInferenceEngine.from_checkpoint")
+        cfg = load_config(f"{checkpoint_dir}/config.json")
+        return cls(cfg, cls._restore_params(checkpoint_dir, device),
+                   max_seq_len=max_seq_len, device=device, **kwargs)
+
+    def state_dict(self) -> Tensors:
+        """The engine's weights: its own tensors, not copies."""
+        return self.model.state_dict()
+
+    @torch.no_grad()
+    def reload(
+        self,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        checkpoint_dir: Optional[str] = None,
+        refresh_sessions: bool = True,
+    ) -> None:
+        """Hot swap of the weights, from a state dict or the newest
+        checkpoint of ``checkpoint_dir`` (exactly one). The new weights must
+        have the engine's names, shapes and dtypes, or it raises before
+        writing anything; they are then copied into the engine's tensors.
+        Live sessions keep their id windows and, with ``refresh_sessions``,
+        are re-encoded under the new weights."""
+        if (params is None) == (checkpoint_dir is None):
+            raise ValueError("pass exactly one of params / checkpoint_dir")
+        if checkpoint_dir is not None:
+            params = self._restore_params(checkpoint_dir, self.device)
+        own = self.state_dict()
+        if set(params) != set(own):
+            raise ValueError(f"reload: names differ: missing {sorted(set(own) - set(params))}, "
+                             f"unknown {sorted(set(params) - set(own))}")
+        for k, t in own.items():
+            v = params[k]
+            if tuple(v.shape) != tuple(t.shape) or v.dtype != t.dtype:
+                raise ValueError(f"reload {k}: {tuple(v.shape)} {v.dtype}, engine "
+                                 f"{tuple(t.shape)} {t.dtype}")
+        for k, t in own.items():
+            t.copy_(params[k])
+        if refresh_sessions:
+            self._refresh_sessions()
+
+    def _refresh_sessions(self) -> None:
+        for sid in list(self._sessions):
+            self.refresh_session(sid)
+
+    @torch.no_grad()
+    def apply_push(self, push: Dict, refresh_sessions: bool = True) -> None:
+        """Apply an incremental push (``param_push.build_push``): exact when
+        the engine holds the checkpoint the delta was accumulated from. The
+        whole push is validated before anything is written; then the dense
+        tensors are copied and the pushed rows written into the engine's own
+        tables, which are not copied."""
+        own = self.state_dict()
+        param_push.validate(own, push, table_param_names(self.cfg))
+        # the rows reach the device before any tensor is written
+        rows = {k: (d["ids"].to(self.device, torch.long), d["rows"].to(self.device, own[k].dtype))
+                for k, d in push["tables"].items()}
+        for k, v in push["dense"].items():
+            own[k].copy_(v)
+        for k, (ids, r) in rows.items():
+            own[k].index_copy_(0, ids, r)
+        if refresh_sessions:
+            self._refresh_sessions()
 
     # -- preprocessing ------------------------------------------------------
     def _to_device(self, arr: np.ndarray, names: Sequence[str]) -> Tensors:

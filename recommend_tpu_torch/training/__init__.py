@@ -1,1 +1,1 @@
-"""Ranking training: loss, dense optimizer, streaming AUC and the trainer."""
+"""Ranking training: loss, dense optimizer, metrics, checkpoints and the trainer."""

@@ -16,15 +16,27 @@ is ``(dense optimizer state, {table name: accumulator})`` with the
 accumulators at 0.1 (optax's adagrad default), one per row in ``rowwise``
 mode.
 
+``model=`` takes any module with ``RankingModel``'s forward signature whose
+id tables carry ``RankingModel``'s names under ``tokenizer.`` (the DCNv2+DIN
+baseline, ``models/din.py``). ``debug_metrics`` adds training-health scalars
+to each step's metrics.
+
+``checkpoint_dir`` (``training/checkpoint.py``): ``init_state`` resumes from
+the newest checkpoint there (parameters, optimizer state with its count,
+the step, and the dropout generator's state, which JAX needs not keep: it
+folds the step into a fixed key); ``train`` saves at every better
+evaluation and at the end. ``profile_dir`` traces a window of steps with
+``torch.profiler`` (``utils/profiling.py``).
+
 The trainer runs on CUDA unless given ``device="cpu"``; with no device
-given and no CUDA available it raises. Checkpointing (``checkpoint_dir``)
-and the device mesh (``mesh``) are not ported yet and raise when asked for.
+given and no CUDA available it raises. The device mesh (``mesh``) is not
+ported yet and raises when asked for.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterator, NamedTuple, Optional
+from typing import Any, Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,12 +53,15 @@ from recommend_tpu_torch.ops.sparse_embed import (
     sparse_rowwise_update_table,
     sparse_update_table,
 )
+from recommend_tpu_torch.training.checkpoint import CheckpointManager
 from recommend_tpu_torch.training.metrics import streaming_auc
 from recommend_tpu_torch.training.optimizer import (
+    global_norm,
     make_ranking_optimizer,
     sparse_lr_schedule,
 )
 from recommend_tpu_torch.utils.logging import MetricLogger
+from recommend_tpu_torch.utils.profiling import StepProfiler
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -64,22 +79,32 @@ class RankingTrainer:
         checkpoint_dir: Optional[str] = None,
         log_dir: Optional[str] = None,
         mesh=None,
+        model: Optional[torch.nn.Module] = None,
         total_steps: int = 0,
+        debug_metrics: bool = False,
         device=None,
+        max_to_keep: int = 5,
     ):
-        """``total_steps`` feeds the cosine dense-LR schedule."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "RankingTrainer: checkpoints (ROADMAP A11) are not ported yet")
+        """``total_steps`` feeds the cosine dense-LR schedule.
+        ``debug_metrics`` adds max |task logit|, the item table's RMS and
+        the dense parameters' norm to each step's metrics (the table RMS
+        reads the whole table every step). ``max_to_keep``: checkpoints
+        kept in ``checkpoint_dir``."""
         if mesh is not None:
             raise NotImplementedError(
                 "RankingTrainer: multi-device training (ROADMAP A17) is not "
                 "ported yet")
         self.device = resolve_device(device, "RankingTrainer")
         self.cfg = cfg
-        with torch.device("meta"):
-            self.model = RankingModel(cfg)
+        if model is None:
+            with torch.device("meta"):
+                model = RankingModel(cfg)
+        self.model = model
+        self.debug_metrics = debug_metrics
+        self.ckpt = CheckpointManager(checkpoint_dir, max_to_keep) if checkpoint_dir else None
         self.tables = table_param_names(cfg)
+        self._ns_tables = dict(zip(cfg.non_seq_features, self.tables))  # feature -> table
+        self._item_table = self.tables[-1] if cfg.sequence_features else None
         self.optimizer = make_ranking_optimizer(cfg, total_steps, self.tables)
         self.logger = MetricLogger(log_dir)
         self.history: Dict[str, list] = {"train": [], "val": []}
@@ -122,18 +147,30 @@ class RankingTrainer:
         return out
 
     def init_state(self, params: Optional[Tensors] = None, seed: int = 0,
-                   accums: Optional[Tensors] = None) -> TrainState:
-        """A fresh state: ``params`` (a ``RankingModel`` state dict, e.g.
-        from ``convert.params_from_flax``) or ``init_params(cfg, seed)``,
-        copied to the device; a zero optimizer state; with sparse updates,
-        ``accums`` (by table parameter name) or 0.1 everywhere."""
-        cfg = self.cfg
+                   accums: Optional[Tensors] = None,
+                   generator: Optional[torch.Generator] = None) -> TrainState:
+        """A fresh state: ``params`` (the model's state dict, e.g. from
+        ``convert.params_from_flax``) or ``init_params(cfg, seed)``, copied
+        to the device; a zero optimizer state; with sparse updates,
+        ``accums`` (by table parameter name) or 0.1 everywhere. With a
+        ``checkpoint_dir`` that holds a checkpoint, the newest one is
+        returned instead (nothing is drawn), and ``generator`` takes the
+        dropout state saved with it."""
+        restored = self.ckpt.restore(map_location=self.device) if self.ckpt else None
+        if restored is not None:
+            return self._resume(restored, generator)
         if params is None:
-            params = init_params(cfg, seed=seed, device=self.device)
+            params = init_params(self.cfg, seed=seed, device=self.device, model=self.model)
+        return TrainState(*self._build_state(params, accums, self.device), 0)
+
+    def _build_state(self, params: Mapping[str, torch.Tensor], accums: Optional[Tensors],
+                     device) -> Tuple[Tensors, Any]:
+        """(params on ``device``, the optimizer state that goes with them)."""
+        cfg = self.cfg
         sparse = cfg.use_sparse_embedding_updates
         state: Tensors = {}
         for name, value in params.items():
-            t = torch.as_tensor(value).to(self.device, copy=True)
+            t = torch.as_tensor(value).to(device, copy=True)
             state[name] = t.requires_grad_(not (sparse and name in self.tables))
         dense = {n: t for n, t in state.items() if not (sparse and n in self.tables)}
         opt_state = self.optimizer.init(dense)
@@ -141,14 +178,36 @@ class RankingTrainer:
             if accums is None:
                 rowwise = cfg.sparse_update_mode == "rowwise"
                 accums = {n: torch.full(state[n].shape[:1] if rowwise else state[n].shape,
-                                        0.1, dtype=torch.float32, device=self.device)
+                                        0.1, dtype=torch.float32, device=device)
                           for n in self.tables}
             else:
-                accums = {n: torch.as_tensor(accums[n]).to(self.device, torch.float32,
+                accums = {n: torch.as_tensor(accums[n]).to(device, torch.float32,
                                                            copy=True)
                           for n in self.tables}
             opt_state = (opt_state, accums)
-        return TrainState(state, opt_state, 0)
+        return state, opt_state
+
+    def _resume(self, restored, generator: Optional[torch.Generator]) -> TrainState:
+        """A restored checkpoint as the state, once its layout is the one
+        this config builds (built on the meta device to compare: no memory,
+        no draws)."""
+        like = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                for n, p in self.model.named_parameters()}
+        params, opt_state = self._build_state(like, None, "meta")
+        try:
+            _check_layout(params, restored.params)
+            _check_layout(opt_state, restored.opt_state)
+        except (KeyError, ValueError, TypeError) as e:
+            raise RuntimeError(
+                "checkpoint restore failed — the directory holds a state "
+                "layout incompatible with this config (different "
+                "sparse_update_mode, vocab sizes, or optimizer layout). "
+                "Point at a fresh checkpoint_dir or retrain.") from e
+        for name, t in restored.params.items():
+            t.requires_grad_(params[name].requires_grad)
+        if generator is not None and restored.rng_state is not None:
+            generator.set_state(restored.rng_state.cpu())
+        return TrainState(restored.params, restored.opt_state, restored.step)
 
     # -- steps ---------------------------------------------------------------
     def _logits(self, params: Tensors, batch: Dict, **kwargs) -> Tensors:
@@ -196,10 +255,9 @@ class RankingTrainer:
                 valid = torch.cat([batch["seq_valid"][sf].reshape(-1) for sf in seq_names])
                 ids, g, dropped = compact_valid_rows(
                     ids, g, valid, cfg.sparse_scatter_budget, item_vocab)
-            name = "tokenizer.item_embed.weight"
+            name = self._item_table
             self._update(params[name], accums[name], ids, g, lr)
-        for f in cfg.non_seq_features:
-            name = f"tokenizer.embeds.{f}.weight"
+        for f, name in self._ns_tables.items():
             self._update(params[name], accums[name], batch["non_seq"][f],
                          gdummies[f"ns_{f}"], lr)
         return dropped
@@ -221,6 +279,8 @@ class RankingTrainer:
             loss, [params[n] for n in names] + list(dummies.values()), allow_unused=True)
         gparams = {n: torch.zeros_like(params[n]) if g is None else g
                    for n, g in zip(names, grads)}
+        if self.debug_metrics:
+            self._add_debug_metrics(metrics, logits, params)
         opt_state = state.opt_state[0] if sparse else state.opt_state
         metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state)
         if sparse:
@@ -232,6 +292,20 @@ class RankingTrainer:
                 metrics["sparse_dropped_rows"] = dropped
         metrics = {k: v.detach() for k, v in metrics.items()}
         return state._replace(step=state.step + 1), metrics
+
+    @torch.no_grad()
+    def _add_debug_metrics(self, metrics: Dict, logits: Tensors, params: Tensors) -> None:
+        """Training-health scalars of the parameters the step started from:
+        max |logit| per task, the item table's RMS, the dense parameters'
+        global norm."""
+        for t, l in logits.items():
+            metrics[f"{t}_logit_max"] = l.abs().max()
+        if self._item_table is not None:
+            item = params[self._item_table]
+            metrics["item_table_rms"] = item.float().square().mean().sqrt()
+        sparse = self.cfg.use_sparse_embedding_updates
+        metrics["dense_param_norm"] = global_norm(
+            t for n, t in params.items() if not (sparse and n in self.tables))
 
     @torch.no_grad()
     def _eval_step(self, params: Tensors, batch: Dict, auc_states):
@@ -266,27 +340,38 @@ class RankingTrainer:
         log_every: int = 100,
         early_stop_patience: Optional[int] = None,
         seed: int = 0,
+        profile_dir: Optional[str] = None,
+        profile_start: int = 10,
+        profile_num_steps: int = 5,
         track_best_params: bool = False,
     ) -> TrainState:
-        """Train from ``init_params(cfg, seed)`` for ``num_steps``; ``seed``
-        also seeds the dropout generator. Logs every
+        """Train from ``init_params(cfg, seed)`` (or the newest checkpoint
+        of ``checkpoint_dir``) to step ``num_steps``; ``seed`` also seeds
+        the dropout generator. Logs every
         ``log_every`` steps into ``history["train"]``, evaluates
         ``val_fn()`` every ``eval_every`` steps into ``history["val"]``, stops
         after ``early_stop_patience`` evaluations without a better
         primary-task AUC, and with ``track_best_params`` keeps a copy of the
         best evaluation's params in ``best_params`` (with
-        ``best_val_step``, ``best_val_metrics``)."""
+        ``best_val_step``, ``best_val_metrics``). With a ``checkpoint_dir``
+        it saves at every better evaluation and at the end. With
+        ``profile_dir`` it writes a ``torch.profiler`` trace of steps
+        [profile_start, profile_start + profile_num_steps) after the start
+        step there."""
         generator = torch.Generator().manual_seed(seed)
         batch = next(train_iter)
-        state = self.init_state(seed=seed)
+        state = self.init_state(seed=seed, generator=generator)
+        start_step = state.step
+        prof = StepProfiler(profile_dir, start_step + profile_start, profile_num_steps)
         best_val = -float("inf")
         self.best_params = None
         self.best_val_step = None
         self.best_val_metrics = None
         bad_evals = 0
         t0 = time.time()
-        for i in range(state.step, num_steps):
-            state, metrics = self._train_step(state, self._put_batch(batch), generator)
+        for i in range(start_step, num_steps):
+            with prof.step(i):
+                state, metrics = self._train_step(state, self._put_batch(batch), generator)
             if (i + 1) % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t0
@@ -309,6 +394,7 @@ class RankingTrainer:
                                             for k, v in state.params.items()}
                         self.best_val_step = i + 1
                         self.best_val_metrics = dict(vm)
+                    self._save(state, generator)
                 else:
                     bad_evals += 1
                     if early_stop_patience and bad_evals >= early_stop_patience:
@@ -316,4 +402,36 @@ class RankingTrainer:
                 t0 = time.time()
             if i + 1 < num_steps:
                 batch = next(train_iter)
+        prof.close()
+        self._save(state, generator)
         return state
+
+    def _save(self, state: TrainState, generator: torch.Generator) -> None:
+        if self.ckpt is not None:
+            self.ckpt.save(state.step, state.params, state.opt_state,
+                           config_dict=self.cfg.to_dict(), history=self.history,
+                           rng_state=generator.get_state())
+
+
+def _check_layout(fresh, restored, where: str = "state") -> None:
+    """Raise unless ``restored`` has ``fresh``'s structure: the same dict
+    keys and sequence lengths, tensors of the same shape and dtype."""
+    if isinstance(fresh, torch.Tensor):
+        if not isinstance(restored, torch.Tensor):
+            raise TypeError(f"{where}: expected a tensor, found {type(restored).__name__}")
+        if restored.shape != fresh.shape or restored.dtype != fresh.dtype:
+            raise ValueError(f"{where}: {tuple(restored.shape)} {restored.dtype}, expected "
+                             f"{tuple(fresh.shape)} {fresh.dtype}")
+    elif isinstance(fresh, dict):
+        if not isinstance(restored, dict) or set(restored) != set(fresh):
+            raise KeyError(f"{where}: keys differ")
+        for k in fresh:
+            _check_layout(fresh[k], restored[k], f"{where}.{k}")
+    elif isinstance(fresh, (tuple, list)):
+        if not isinstance(restored, (tuple, list)) or len(restored) != len(fresh):
+            raise TypeError(f"{where}: expected a sequence of {len(fresh)}")
+        for i, (a, b) in enumerate(zip(fresh, restored)):
+            _check_layout(a, b, f"{where}[{i}]")
+    elif type(restored) is not type(fresh):
+        raise TypeError(f"{where}: {type(restored).__name__}, expected "
+                        f"{type(fresh).__name__}")

@@ -1,1 +1,1 @@
-"""Stdlib helpers."""
+"""Metric logging and the step profiler."""

@@ -4,7 +4,8 @@
   optax, orbax) nor anything of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
 - the engine, the initializer and the trainer run on CUDA unless told
-  otherwise, and raise without it;
+  otherwise, and raise without it; the trainer's ``checkpoint_dir`` writes
+  nothing before a save;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -107,7 +108,7 @@ def test_init_params_without_cuda_raises_unless_told_cpu(monkeypatch):
     assert all(t.device.type == "cpu" for t in params.values())
 
 
-def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
+def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch, tmp_path):
     from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
     from __graft_entry__ import _tiny_cfg
     from tests.test_torch_ranking import port_config
@@ -118,9 +119,12 @@ def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
         RankingTrainer(cfg)
     state = RankingTrainer(cfg, device="cpu").init_state(seed=0)
     assert all(t.device.type == "cpu" for t in state.params.values())
-    # not ported yet: each raises rather than being ignored
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        RankingTrainer(cfg, device="cpu", checkpoint_dir="ckpt")
+    # checkpoint_dir makes its directory and writes nothing before a save
+    ck = tmp_path / "ckpt"
+    trainer = RankingTrainer(cfg, device="cpu", checkpoint_dir=str(ck))
+    trainer.init_state(seed=0)
+    assert ck.is_dir() and list(ck.iterdir()) == []
+    # not ported yet: raises rather than being ignored
     with pytest.raises(NotImplementedError, match="multi-device"):
         RankingTrainer(cfg, device="cpu", mesh=object())
 
