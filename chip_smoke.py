@@ -77,7 +77,24 @@ Phases, in order; any failure raises and exits non-zero:
    ``RankingEvaluator.evaluate`` of DIN and of K's step-4 OneTrans on the same
    4 validation batches (AUC, UAUC, throughput); ``latency_benchmark`` of
    ``score_request``; TA's MFU against the H100's dense bf16 peak;
-10. print the kernels' JSON line, then the result line.
+10. R, retrieval serving at the JAX package's flagship serving row
+    (examples/flagship_serving_bench.py: ``retrieval_flagship``, dropout 0,
+    top 100, a 10M-item corpus, random weights from a seed, bf16; no
+    band-attention kernel runs, and the counts are held at 0): the flat
+    index built through the item tower in batches of 8192; searches of the
+    flat, int8 and int8 + ``approx_recall=0.99`` (exact here) variants at
+    batch 1 and 64 (p50, QPS, top-100 recall against the exact scan), the
+    single request end to end; an IVF index (4096 clusters, capacity 2.5x
+    the mean, int8, 5 iterations) searched with nprobe 16 in query chunks of
+    16 users; ``RealTimeRecommender`` (200 requests, ``similar_to``, an
+    ``update_items`` append, ``refresh``); ``RetrievalEvaluator`` on a
+    100k-video corpus. Gates: the float32 tower on the card against the CPU
+    (1e-5 of max|ref|); the chunked flat and int8 scans against one-shot
+    scans (the same top-100 id sets, scores 1e-6 relative); at 100k items
+    and 256 clusters a full-probe IVF search against the flat scan and two
+    builds bit-equal; no seen item recommended, and the recommender's scores
+    those of ``index.search``;
+11. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -1410,6 +1427,338 @@ def din_eval_phase(fa, totals, k_out, ta_examples_per_s):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase R: retrieval serving at the flagship corpus
+# ---------------------------------------------------------------------------
+
+R_CORPUS = 10_000_000  # retrieval_flagship's video vocabulary
+R_BATCH, R_TOPK = 64, 100
+R_SEARCH_CALLS = 20  # timed searches per variant and batch size
+R_IVF_CLUSTERS, R_IVF_NPROBE, R_IVF_ITERS = 4096, 16, 5
+R_IVF_QUERY_USERS = 16  # users per IVF probe gather ([64, 16, cap, D] int8)
+# the IVF check: a full probe against the flat scan, two builds bit-equal
+R_CHECK_ITEMS, R_CHECK_CLUSTERS = 100_000, 256
+R_USERS, R_REC_CALLS = 8, 200  # recommender sessions and requests
+R_APPEND = 1000  # items the update_items check appends
+# The evaluator's corpus is cut to 100k videos: make_retrieval_data draws
+# each user's history with an rng.choice over a V-entry p, O(V) host work
+# per user, and evaluate_classification one per batch.
+R_EVAL_USERS, R_EVAL_VIDEOS, R_EVAL_BATCHES = 1000, 100_000, 64
+R_TOWER_TOL = 1e-5  # float32 tower, card against CPU, of max|ref|
+R_SCORE_RTOL = 1e-6  # chunked against one-shot scans, relative
+
+
+def _recall(ref_ids, got_ids) -> float:
+    """Mean per-query overlap of the top-k id sets."""
+    import numpy as np
+
+    return float(np.mean([len(set(r.tolist()) & set(g.tolist())) / len(r)
+                          for r, g in zip(np.asarray(ref_ids), np.asarray(got_ids))]))
+
+
+def _same_topk(label, got, ref):
+    """The same id set per row, and the sorted scores within R_SCORE_RTOL."""
+    import numpy as np
+
+    (gs, gi), (rs, ri) = [[np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in p]
+                          for p in (got, ref)]
+    for row, (a, b) in enumerate(zip(gi, ri)):
+        assert set(a.tolist()) == set(b.tolist()), f"R: {label}: row {row} ids differ"
+    gs, rs = np.sort(gs, axis=1), np.sort(rs, axis=1)
+    err = float(np.max(np.abs(gs - rs) / np.maximum(np.abs(rs), 1e-30)))
+    assert err <= R_SCORE_RTOL, f"R: {label}: scores differ by {err}"
+    return err
+
+
+def _ms(fn, calls):
+    """Host-clock ms of ``calls`` calls after one warm-up; each call ends in
+    a host copy or a synchronize."""
+    import numpy as np
+
+    fn()
+    out = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t) * 1e3)
+    return np.asarray(out)
+
+
+def _corpus_and_histories(cfg, corpus, rng):
+    """The JAX serving bench's synthetic corpus (examples/
+    flagship_serving_bench.py:55-71) and R_BATCH left-padded histories of
+    10..max_seq_len items."""
+    import numpy as np
+
+    feats = {
+        "video_id": np.arange(corpus, dtype=np.int64),
+        "category": rng.integers(1, cfg.category_vocab_size, corpus),
+        "tag": rng.integers(1, cfg.tag_vocab_size, corpus),
+        "duration": rng.uniform(5, 300, corpus).astype(np.float32),
+        "timestamp": np.full(corpus, 1_700_000_000, np.int64),
+    }
+    l = cfg.max_seq_len
+    watched = rng.integers(0, corpus, (R_BATCH, l))
+    hist = {k: v[watched] for k, v in feats.items()}
+    hist["timestamp"] = hist["timestamp"] + rng.integers(0, 86_400 * 30, (R_BATCH, l))
+    valid = np.arange(l)[None, :] >= l - rng.integers(10, l + 1, (R_BATCH, 1))
+    for k in hist:
+        hist[k] = np.where(valid, hist[k], 0).astype(hist[k].dtype)
+    return feats, hist, valid
+
+
+def retrieval_phase(device="cuda", corpus=R_CORPUS, ivf_clusters=R_IVF_CLUSTERS,
+                    check_items=R_CHECK_ITEMS, check_clusters=R_CHECK_CLUSTERS,
+                    eval_videos=R_EVAL_VIDEOS, eval_users=R_EVAL_USERS):
+    """R: the retrieval serving path at the flagship corpus, held to its
+    gates (the sizes are arguments so the phase rehearses on the CPU)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.data.pipeline import retrieval_batches
+    from recommend_tpu_torch.data.synthetic import make_retrieval_data
+    from recommend_tpu_torch.evaluation.retrieval_eval import RetrievalEvaluator
+    from recommend_tpu_torch.models.retrieval import load_tower
+    from recommend_tpu_torch.ops.ivf import build_ivf, ivf_search_interests
+    from recommend_tpu_torch.ops.topk import (
+        matmul_f32, quantize_corpus, score_items, topk_retrieval, topk_retrieval_quantized)
+    from recommend_tpu_torch.serving.retrieval_service import (
+        RealTimeRecommender, RetrievalIndex)
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = get_config("retrieval_flagship", dropout_rate=0.0, top_k=R_TOPK,
+                     video_vocab_size=corpus)
+    params = init_retrieval_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED)
+    corpus_feats, hist, valid = _corpus_and_histories(cfg, corpus, rng)
+    feats = {k: torch.as_tensor(v, device=dev) for k, v in hist.items()}
+    valid_t = torch.as_tensor(valid, device=dev)
+    notes = []
+
+    # the float32 tower: card against CPU, same state dict and histories
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        on_card = load_tower(c32, params, dev)(feats, valid_t).cpu()
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        on_cpu = load_tower(c32, cpu_params, torch.device("cpu"))(
+            {k: v.cpu() for k, v in feats.items()}, valid_t.cpu())
+    del cpu_params
+    tower_err = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    assert tower_err <= R_TOWER_TOL, f"R: f32 tower, card vs CPU {tower_err}"
+
+    # the flat index: the corpus through the item tower
+    index = RetrievalIndex(cfg, params, embed_batch=8192, device=dev)
+    t = time.perf_counter()
+    index.build(corpus_feats)
+    sync()
+    build_s = time.perf_counter() - t
+    items = index.item_embeddings
+    with torch.no_grad():
+        ints64 = index.model(feats, valid_t)
+    ints1 = ints64[:1]
+
+    # chunked scans against one-shot ones (the [64, V] float32 matrix)
+    exact = topk_retrieval(ints64, items, R_TOPK)
+    flat_err = _same_topk("flat scan", exact, torch.topk(score_items(ints64, items), R_TOPK))
+    q_items, q_scales = quantize_corpus(items)
+    b, ki, d = ints64.shape
+    one_shot = matmul_f32(ints64.reshape(b * ki, d).to(torch.bfloat16),
+                          q_items.to(torch.bfloat16).T).reshape(b, ki, -1).amax(dim=1)
+    int8_err = _same_topk("int8 scan",
+                          topk_retrieval_quantized(ints64, q_items, q_scales, R_TOPK),
+                          torch.topk(one_shot * q_scales[None, :], R_TOPK))
+    del one_shot
+    exact_ids = exact[1].cpu().numpy()
+
+    variants = [("flat exact", index)]
+    for label, kw in (("int8", {}), ("int8 approx_recall=0.99", {"approx_recall": 0.99})):
+        v = RetrievalIndex(cfg, params, quantize="int8", device=dev, **kw)
+        v.item_embeddings, v.q_items, v.q_scales = items, q_items, q_scales
+        variants.append((label, v))
+    notes.append("approx_recall=0.99 runs the exact top k (no approx_max_k in PyTorch)")
+    report = {}
+    for label, v in variants:
+        r = {"recall": _recall(exact_ids, v.search(ints64, R_TOPK)[1])}
+        for tag, ints in (("b1", ints1), ("b64", ints64)):
+            lat = _ms(lambda: v.search(ints, R_TOPK), R_SEARCH_CALLS)
+            r[tag] = lat
+        r["qps"] = R_BATCH * 1e3 / r["b64"].mean()
+
+        def once():
+            with torch.no_grad():
+                return v.search(index.model({k: x[:1] for k, x in feats.items()},
+                                            valid_t[:1]), R_TOPK)
+
+        r["e2e"] = _ms(once, R_SEARCH_CALLS)
+        report[label] = r
+    del variants
+
+    # the scans alone on the card (CUDA events) against their bound: the
+    # corpus (and, int8, its scales) read once over the memory rate, or the
+    # bf16 products (int8 rows are multiplied as bf16) over the bf16 peak
+    scans = {}
+    for label, scan, nbytes in (
+            ("flat", lambda x: topk_retrieval(x, items, R_TOPK),
+             items.numel() * items.element_size()),
+            ("int8", lambda x: topk_retrieval_quantized(x, q_items, q_scales, R_TOPK),
+             q_items.numel() + 4 * q_scales.numel())):
+        for tag, ints in (("b1", ints1), ("b64", ints64)):
+            io = ints.numel() * ints.element_size() + ints.shape[0] * R_TOPK * (4 + 8)
+            by_bytes = (nbytes + io) / PEAK_BYTES * 1e3
+            by_ops = 2 * ints.shape[0] * ki * d * corpus / PEAK_FLOPS["bfloat16"] * 1e3
+            ms = (cuda_ms(lambda: scan(ints), R_SEARCH_CALLS) if dev.type == "cuda"
+                  else float("nan"))
+            scans[f"{label} {tag}"] = (ms, max(by_bytes, by_ops),
+                                       "bytes" if by_bytes >= by_ops else "operations")
+
+    # IVF at the flagship corpus, then the check size
+    cap = int(corpus / ivf_clusters * 2.5)
+    t = time.perf_counter()
+    ivf = build_ivf(items, n_clusters=ivf_clusters, capacity=cap, quantize="int8",
+                    iters=R_IVF_ITERS)
+    sync()
+    ivf_build_s = time.perf_counter() - t
+
+    def ivf_search(ints):
+        return ivf_search_interests(ivf, ints, R_TOPK, nprobe=R_IVF_NPROBE,
+                                    query_chunk=R_IVF_QUERY_USERS * ki)
+
+    ivf_recall = _recall(exact_ids, ivf_search(ints64)[1])
+    ivf_lat = {tag: _ms(lambda: ivf_search(ints), R_SEARCH_CALLS)
+               for tag, ints in (("b1", ints1), ("b64", ints64))}
+    ivf_gb = (ivf.bucket_embs.numel() + 4 * ivf.bucket_scales.numel()) / 1e9
+    del ivf
+    check = items[:check_items]
+    first = build_ivf(check, n_clusters=check_clusters, iters=R_IVF_ITERS)
+    again = build_ivf(check, n_clusters=check_clusters, iters=R_IVF_ITERS)
+    for name, a, c in zip(first._fields, first, again):
+        assert a is None and c is None or torch.equal(a, c), f"R: two IVF builds differ in {name}"
+    full = ivf_search_interests(first, ints64, R_TOPK, nprobe=check_clusters, query_chunk=16)
+    probe_err = _same_topk("full-probe IVF", full, topk_retrieval(ints64, check, R_TOPK))
+    check_cap = first.capacity
+    del first, again, check
+
+    # the recommender: sessions from the histories, one new item a request
+    rec = RealTimeRecommender(cfg, params, index, device=dev)
+    for u in range(R_USERS):
+        for p in np.nonzero(valid[u])[0]:
+            rec.add_interaction(u, {k: hist[k][u, p].item() for k in hist})
+    for n in range(R_REC_CALLS):
+        u = n % R_USERS
+        out = rec.get_recommendations(u, top_k=R_TOPK)
+        seen = {it["video_id"] for it in rec.sessions[u]}
+        assert len(out) == R_TOPK and not seen & {r["video_id"] for r in out}, \
+            f"R: request {n} recommended a seen item"
+        rec.add_interaction(u, {k: corpus_feats[k][out[0]["video_id"]].item()
+                                for k in corpus_feats})
+    rec_stats = rec.stats()
+    u = 0
+    seen = {it["video_id"] for it in rec.sessions[u]}
+    got = rec.get_recommendations(u, top_k=R_TOPK)
+    s, i = index.search(rec.user_interests(u), R_TOPK + len(seen))
+    want = [(int(a), float(c)) for c, a in zip(s[0], i[0]) if int(a) not in seen][:R_TOPK]
+    assert [(r["video_id"], r["score"]) for r in got] == want, \
+        "R: the recommender's results differ from index.search"
+    similar = rec.similar_to(0, top_k=10)
+    assert len(similar) == 10 and all(r["video_id"] != 0 for r in similar)
+    del rec, index
+
+    # incremental update: an index over all but the last R_APPEND items
+    # takes them as an append (new uploads), then a refresh re-embeds all
+    part = RetrievalIndex(cfg, params, embed_batch=8192, device=dev)
+    part.build({k: v[:corpus - R_APPEND] for k, v in corpus_feats.items()})
+    t = time.perf_counter()
+    part.update_items({k: v[corpus - R_APPEND:] for k, v in corpus_feats.items()})
+    sync()
+    update_s = time.perf_counter() - t
+    # the appended rows went through the tower in another batch shape than a
+    # build's, so a product may round differently: bf16 tolerance
+    append_err = float((part.item_embeddings.float() - items.float()).abs().max()
+                       / items.float().abs().max())
+    assert append_err <= BF16_REL_TOL, f"R: build + append vs a build {append_err}"
+    t = time.perf_counter()
+    part.refresh(params)
+    sync()
+    refresh_s = time.perf_counter() - t
+    assert torch.equal(part.item_embeddings, items), "R: refresh with the same weights changed rows"
+    del part, items, q_items, q_scales
+
+    # offline evaluation on a 100k-video corpus
+    t = time.perf_counter()
+    data = make_retrieval_data(cfg, num_users=eval_users, num_videos=eval_videos, seed=SEED)
+    batches = list(retrieval_batches(data, cfg, batch_size=R_BATCH, seed=SEED,
+                                     num_epochs=1))[:R_EVAL_BATCHES]
+    data_s = time.perf_counter() - t
+    ev = RetrievalEvaluator(cfg, params, device=dev)
+    ev.evaluate_retrieval(data, batches[:1])  # builds the index, first call
+    t = time.perf_counter()
+    metrics = ev.evaluate_retrieval(data, batches)
+    eval_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cls = ev.evaluate_classification(data, batches[:16])
+    cls_s = time.perf_counter() - t
+    for name, x in {**metrics, **cls}.items():
+        assert 0.0 <= x <= 1.0, f"R: evaluator {name} = {x}"
+    assert metrics["recall@1"] <= metrics["recall@10"] <= metrics["recall@100"]
+    lat = ev.benchmark_latency(batches[0], n_iters=20, warmup=3)
+    del ev, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    p = lambda a, q: float(np.percentile(a, q))
+    lines = [f"phase R: retrieval_flagship (d {cfg.embed_dim}, {cfg.num_layers} layers, "
+             f"{cfg.num_heads} heads, {cfg.max_seq_len} items -> "
+             f"{cfg.num_compressed_tokens} tokens + {cfg.num_query_tokens} queries, bf16), "
+             f"corpus {corpus} items, batch {R_BATCH}, top {R_TOPK} | flat index build "
+             f"{build_s:.3f} s ({corpus / build_s:.0f} items/s) | f32 tower card vs CPU "
+             f"{tower_err:.2e} | chunked vs one-shot scan: flat ids equal, scores "
+             f"{flat_err:.2e}; int8 ids equal, scores {int8_err:.2e} | " + "; ".join(notes)]
+    for label, r in report.items():
+        lines.append(
+            f"phase R search {label}: top-100 recall vs exact {r['recall']:.4f} | batch 1 "
+            f"n={R_SEARCH_CALLS} p50 {p(r['b1'], 50):.3f} ms p99 {p(r['b1'], 99):.3f} ms | "
+            f"batch 64 p50 {p(r['b64'], 50):.3f} ms p99 {p(r['b64'], 99):.3f} ms, "
+            f"{r['qps']:.1f} QPS | end to end (encode + search) batch 1 p50 "
+            f"{p(r['e2e'], 50):.3f} ms p99 {p(r['e2e'], 99):.3f} ms")
+    lines.append("phase R scan on the card (topk_retrieval / topk_retrieval_quantized, CUDA "
+                 f"events, n={R_SEARCH_CALLS}): " + "; ".join(
+                     f"{k} {ms:.3f} ms, bound {b:.4f} ms ({by}), {b / ms:.1%} of it"
+                     for k, (ms, b, by) in scans.items()))
+    lines.append(
+        f"phase R IVF: {ivf_clusters} clusters, capacity {cap}, int8 ({ivf_gb:.2f} GB of "
+        f"buckets), {R_IVF_ITERS} iterations, build {ivf_build_s:.3f} s | nprobe "
+        f"{R_IVF_NPROBE}, query chunks of {R_IVF_QUERY_USERS} users: top-100 recall vs exact "
+        f"{ivf_recall:.4f} (not gated) | batch 1 p50 {p(ivf_lat['b1'], 50):.3f} ms | batch 64 "
+        f"p50 {p(ivf_lat['b64'], 50):.3f} ms, {R_BATCH * 1e3 / ivf_lat['b64'].mean():.1f} QPS "
+        f"| check at {check_items} items, {check_clusters} clusters (capacity {check_cap}): "
+        f"two builds bit-equal, full probe vs flat scan ids equal, scores {probe_err:.2e}")
+    lines.append(
+        f"phase R recommender: {rec_stats['requests']} requests over {R_USERS} sessions, "
+        f"p50 {rec_stats['latency_ms_p50']:.3f} ms p99 {rec_stats['latency_ms_p99']:.3f} ms; "
+        f"no seen item; scores == index.search | an index of {corpus - R_APPEND} items: "
+        f"update_items append of the last {R_APPEND} {update_s:.3f} s, refresh (re-embeds "
+        f"{corpus}) {refresh_s:.3f} s; appended rows vs a full build {append_err:.2e}, "
+        f"refreshed rows bit-equal to it")
+    lines.append(
+        f"phase R evaluator: {eval_users} users, {eval_videos} videos (cut from the 10M "
+        f"corpus: O(V) host draws per user; data + batches {data_s:.1f} s), "
+        f"{len(batches)} batches of {R_BATCH} | "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + f" | {len(batches) * R_BATCH / eval_s:.1f} samples/s | classification AUC "
+        f"{cls['auc']:.4f}, AP {cls['average_precision']:.4f}, "
+        f"{16 * R_BATCH / cls_s:.1f} samples/s | benchmark_latency batch {lat['batch_size']} "
+        f"p50 {lat['latency_ms_p50']:.3f} ms p99 {lat['latency_ms_p99']:.3f} ms | "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        log(f"{line} [{CARD}]")
+
+
 def ptxas_label(line: str) -> str:
     """``name<template ints and bools>`` of the kernel whose mangled name a
     ptxas 'Compiling entry function' line gives, e.g. band_attn_kernel<128>
@@ -1478,6 +1827,7 @@ def main() -> int:
     s_trunk_phase(fa, totals)
     session_phase(fa, totals)
     din_eval_phase(fa, totals, checkpoint_phase(fa, totals), examples_per_s["TA"])
+    counted(fa, retrieval_phase, {}, 1)  # no band-attention kernel
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

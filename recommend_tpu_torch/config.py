@@ -1,9 +1,10 @@
-"""Ranking configuration: the dataclass, its JSON round-trip and presets.
+"""Configuration: the ranking and retrieval dataclasses, their JSON
+round-trip and presets.
 
-A copy of the ranking half of the JAX package's ``config.py``. The port keeps
-its own copy instead of importing it, so that it runs where JAX does not; the
-tests hold the two field for field (``to_dict``). ``save_config`` and
-``load_config`` write and read the same plain JSON as the JAX package's, so a
+A copy of the JAX package's ``config.py``. The port keeps its own copy
+instead of importing it, so that it runs where JAX does not; the tests hold
+the two field for field (``to_dict``). ``save_config`` and ``load_config``
+write and read the same plain JSON as the JAX package's, so a
 ``config.json`` that the JAX trainer wrote beside its checkpoints loads here.
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def _asdict(cfg) -> Dict[str, Any]:
@@ -33,6 +34,99 @@ def _fromdict(cls, d: Dict[str, Any]):
                 tuple(v) if isinstance(v, list) else v for v in known[f.name]
             )
     return cls(**known)
+
+
+@dataclass(frozen=True)
+class CompressionGroupSpec:
+    """One segment of the adaptive item-compression schedule: ``length``
+    items split into groups of ``group_size``, each group compressed to one
+    token unless ``group_size == 1`` (kept raw)."""
+
+    length: int
+    group_size: int
+
+    @property
+    def num_tokens(self) -> int:
+        assert self.length % self.group_size == 0
+        return self.length // self.group_size
+
+
+@dataclass(frozen=True)
+class RetrievalConfig:
+    """KuaiFormer-capability retrieval tower config (kuaiformer config.py:9-59)."""
+
+    # architecture
+    embed_dim: int = 128
+    num_layers: int = 6
+    num_heads: int = 8
+    ffn_dim: int = 512
+    max_seq_len: int = 256
+    num_query_tokens: int = 4
+    dropout_rate: float = 0.1
+    use_causal_mask: bool = False  # bidirectional single-prediction by default
+
+    # adaptive compression schedule: 256 = 128(->2x64) + 80(->5x16) + 48 raw,
+    # 55 output tokens
+    compression_schedule: Tuple[Tuple[int, int], ...] = ((128, 64), (80, 16), (48, 1))
+    compression_layers: int = 1  # depth of the per-group bidirectional encoder
+
+    # feature vocabularies
+    video_vocab_size: int = 10_000_000
+    category_vocab_size: int = 10_000
+    tag_vocab_size: int = 50_000
+    duration_buckets: int = 1000
+    max_duration_s: float = 300.0
+    time_buckets: int = 1000
+
+    # training (used by the trainer, kept so the configs round-trip)
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    warmup_steps: int = 10_000
+    label_smoothing: float = 0.1
+    batch_size: int = 256
+    use_logq_correction: bool = True
+
+    # inference
+    top_k: int = 1000
+
+    # system flags
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    use_remat: bool = False
+    use_flash_attention: bool = False  # read by the ranking model only
+    # touched-row-only updates for the big id tables (video/category/tag)
+    use_sparse_embedding_updates: bool = False
+    sparse_embedding_lr: float = 0.05
+    # "exact" (dedup + per-coordinate adagrad) or "rowwise" (one
+    # accumulator scalar per row)
+    sparse_update_mode: str = "exact"
+    # >0: compact history-grad rows to this static budget before the sparse
+    # scatter; overflow rows are dropped and counted
+    sparse_scatter_budget: int = 0
+
+    def schedule_specs(self) -> List[CompressionGroupSpec]:
+        return [CompressionGroupSpec(l, g) for l, g in self.compression_schedule]
+
+    @property
+    def num_compressed_tokens(self) -> int:
+        return sum(s.num_tokens for s in self.schedule_specs())
+
+    def __post_init__(self):
+        assert sum(l for l, _ in self.compression_schedule) == self.max_seq_len, (
+            "compression schedule must cover max_seq_len exactly"
+        )
+        assert self.sparse_update_mode in ("exact", "rowwise"), (
+            self.sparse_update_mode
+        )
+        assert self.embed_dim % self.num_heads == 0
+
+    to_dict = _asdict
+
+    @classmethod
+    def from_dict(cls, d):
+        return _fromdict(cls, d)
 
 
 @dataclass(frozen=True)
@@ -140,6 +234,39 @@ class RankingConfig:
         return _fromdict(cls, d)
 
 
+def retrieval_base() -> RetrievalConfig:
+    return RetrievalConfig()
+
+
+def retrieval_flagship() -> RetrievalConfig:
+    """The production-scale config: a 10M-video vocabulary, 256-item
+    sequences compressed to 55 tokens, touched-row sparse updates with a
+    16,384-row scatter budget."""
+    return RetrievalConfig(
+        use_sparse_embedding_updates=True,
+        sparse_update_mode="rowwise",
+        sparse_scatter_budget=16_384,
+        use_flash_attention=False,
+    )
+
+
+def retrieval_small() -> RetrievalConfig:
+    return RetrievalConfig(
+        embed_dim=64,
+        num_layers=2,
+        num_heads=4,
+        ffn_dim=128,
+        max_seq_len=64,
+        compression_schedule=((32, 16), (16, 8), (16, 1)),
+        video_vocab_size=10_000,
+        category_vocab_size=100,
+        tag_vocab_size=500,
+        warmup_steps=100,
+        batch_size=64,
+        top_k=100,
+    )
+
+
 def ranking_base() -> RankingConfig:
     return RankingConfig()
 
@@ -184,13 +311,16 @@ def ranking_large() -> RankingConfig:
 
 
 _PRESETS = {
+    "retrieval_base": retrieval_base,
+    "retrieval_flagship": retrieval_flagship,
+    "retrieval_small": retrieval_small,
     "ranking_base": ranking_base,
     "ranking_small": ranking_small,
     "ranking_large": ranking_large,
 }
 
 
-def get_config(name: str, **overrides) -> RankingConfig:
+def get_config(name: str, **overrides):
     """Named preset registry with attribute overrides."""
     if name not in _PRESETS:
         raise KeyError(f"unknown config preset {name!r}; have {sorted(_PRESETS)}")
@@ -211,9 +341,7 @@ def load_config(path: str):
     with open(path) as f:
         d = json.load(f)
     name = d.get("__config_class__")
-    if name == "RetrievalConfig":
-        raise NotImplementedError(
-            f"{path}: RetrievalConfig (ROADMAP A14) is not ported yet")
-    if name != "RankingConfig":
+    classes = {"RetrievalConfig": RetrievalConfig, "RankingConfig": RankingConfig}
+    if name not in classes:
         raise ValueError(f"{path}: unknown __config_class__ {name!r}")
-    return RankingConfig.from_dict(d)
+    return classes[name].from_dict(d)

@@ -13,6 +13,11 @@ zero biases, unit norm scales, and the configured constant head bias. It
 initializes ``DINRankingModel`` by the same rules (``model=``), and
 ``din_params_from_flax`` converts the JAX package's DIN tree.
 
+The retrieval tower has its pair: ``retrieval_params_from_flax`` maps the
+JAX package's ``RetrievalTower`` tree (flax ``DenseGeneral`` q/k/v kernels
+[D, H, Dh] and output kernels [H, Dh, D] flattened as above), and
+``init_retrieval_params`` draws one on the device.
+
 The trainer's state carries across too: ``params_from_flax`` maps the
 parameters, ``accums_from_flax`` the sparse-update accumulators (keyed by
 the flax table names ``embed_<feature>`` / ``embed_seq_item`` there, by the
@@ -29,8 +34,9 @@ import numpy as np
 import torch
 
 from recommend_tpu_torch._device import resolve_device
-from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.config import RankingConfig, RetrievalConfig
 from recommend_tpu_torch.models.ranking import RankingModel
+from recommend_tpu_torch.models.retrieval import RetrievalTower
 
 _BLOCK_STACKS = ("q_ns", "k_ns", "v_ns", "ffn_ns_in", "ffn_ns_in_b",
                  "ffn_ns_out", "ffn_ns_out_b")
@@ -191,6 +197,83 @@ def init_params(cfg: RankingConfig, seed: int = 0, device=None,
                 leaf == "sep_token" or ".embeds." in name or "item_embed" in name):
             p.normal_(0.0, 0.02, generator=gen)
         else:  # nn.Linear [out, in] and the NS stacks [n, in, out]
+            _lecun_normal_(p, p.shape[1], gen)
+        out[name] = p
+    return out
+
+
+def _check_against(sd: Dict[str, torch.Tensor], model: torch.nn.Module) -> None:
+    """Raise unless ``sd`` has exactly the model's names and shapes."""
+    shapes = {n: t.shape for n, t in model.state_dict().items()}
+    if set(sd) != set(shapes):
+        raise KeyError(f"converted {sorted(set(sd) - set(shapes))} not in the model, "
+                       f"model {sorted(set(shapes) - set(sd))} not converted")
+    for name, shape in shapes.items():
+        if sd[name].shape != shape:
+            raise ValueError(f"{name}: converted {tuple(sd[name].shape)}, "
+                             f"model {tuple(shape)}")
+
+
+def _transformer_block(prefix: str, p: Mapping, sd: Dict[str, torch.Tensor]) -> None:
+    for norm in ("attn_norm", "ffn_norm"):
+        sd[f"{prefix}.{norm}.scale"] = _t(p[norm]["scale"])
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        _linear(f"{prefix}.attn.{name}", p["attn"][name], sd)
+    for name in ("gate", "up", "down"):
+        _linear(f"{prefix}.ffn.{name}", p["ffn"][name], sd)
+
+
+def retrieval_params_from_flax(tree: Mapping, cfg: RetrievalConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``RetrievalTower`` params (with or without the outer ``params``
+    key) -> a state dict for ``RetrievalTower(cfg)``. A segment kept raw
+    (``group_size == 1``) has no parameters on either side."""
+    tree = tree.get("params", tree)
+    sd: Dict[str, torch.Tensor] = {}
+    emb = tree["embed"]
+    for name in ("video_id", "category", "tag", "duration", "timestamp"):
+        sd[f"embed.tables.{name}.weight"] = _t(emb[name]["embedding"])
+    _linear("embed.fuse_hidden", emb["fuse_hidden"], sd)
+    _linear("embed.fuse_out", emb["fuse_out"], sd)
+    sd["embed.fuse_norm.scale"] = _t(emb["fuse_norm"]["scale"])
+    for i, spec in enumerate(cfg.schedule_specs()):
+        if spec.group_size > 1:
+            seg = tree["compress"][f"segment_{i}"]
+            for j in range(cfg.compression_layers):
+                _transformer_block(f"compress.segment_{i}.layers.{j}", seg[f"layer_{j}"], sd)
+    sd["query_tokens"] = _t(tree["query_tokens"])
+    sd["mask_token"] = _t(tree["mask_token"])
+    for i in range(cfg.num_layers):
+        _transformer_block(f"blocks.{i}", tree[f"block_{i}"], sd)
+    sd["final_norm.scale"] = _t(tree["final_norm"]["scale"])
+    with torch.device("meta"):
+        _check_against(sd, RetrievalTower(cfg))
+    return sd
+
+
+@torch.no_grad()
+def init_retrieval_params(cfg: RetrievalConfig, seed: int = 0,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """A fresh state dict for ``RetrievalTower(cfg)``, drawn on ``device``
+    from a ``torch.Generator`` seeded with ``seed`` (at the 10M-row video
+    table a draw on the CPU would cost seconds): normal(0.02) tables, query
+    and [MASK] tokens, lecun-normal dense kernels, zero biases, unit norm
+    scales. ``device`` is CUDA unless the caller names another; with none
+    named and no CUDA available it raises."""
+    device = resolve_device(device, "init_retrieval_params")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    with torch.device("meta"):
+        model = RetrievalTower(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for name, ref in model.named_parameters():
+        p = torch.empty(ref.shape, dtype=ref.dtype, device=device)
+        if name.endswith("norm.scale"):
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        elif name.startswith("embed.tables.") or name in ("query_tokens", "mask_token"):
+            p.normal_(0.0, 0.02, generator=gen)
+        else:  # nn.Linear [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         out[name] = p
     return out

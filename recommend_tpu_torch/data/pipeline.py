@@ -1,22 +1,26 @@
-"""Host-side ranking batches: a copy of ``ranking_batches``, its shard
-helpers and ``prefetch`` from the JAX package's ``data/pipeline.py``.
+"""Host-side batches: a copy of ``retrieval_batches``, ``ranking_batches``,
+their shard helpers and ``prefetch`` from the JAX package's
+``data/pipeline.py``.
 
 Fixed-shape numpy batches, drop-remainder, a seeded permutation per epoch,
 and histories left-padded (zeros at the front, validity False) so the most
-recent items sit at the tail, where pyramid tail queries look. The same data
-and seed give the same batches as the JAX package's.
+recent items sit at the tail, where the retrieval tower's compression keeps
+raw tokens and pyramid tail queries look. The same data and seed give the
+same batches as the JAX package's.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from recommend_tpu_torch.config import RankingConfig
-from recommend_tpu_torch.data.synthetic import SyntheticRankingData
+from recommend_tpu_torch.config import RankingConfig, RetrievalConfig
+from recommend_tpu_torch.data.synthetic import SyntheticRankingData, SyntheticRetrievalData
+
+FEATURE_KEYS = ("video_id", "category", "tag", "duration", "timestamp")
 
 
 def _resolve_shard(
@@ -44,6 +48,102 @@ def _shard_slice(order: np.ndarray, num_shards: int, shard_id: int) -> np.ndarra
     process yields the same number of batches per epoch."""
     per = len(order) // num_shards
     return order[shard_id::num_shards][:per]
+
+
+def build_retrieval_examples(
+    data: SyntheticRetrievalData,
+    cfg: RetrievalConfig,
+    min_history: int = 5,
+    max_samples_per_user: Optional[int] = None,
+) -> List[Tuple[int, int]]:
+    """(user_idx, split_point) pairs: one training sample per prefix."""
+    examples = []
+    for u, seq in enumerate(data.user_sequences):
+        n = len(seq["video_id"])
+        points = list(range(min_history, n))
+        if max_samples_per_user is not None and len(points) > max_samples_per_user:
+            points = points[-max_samples_per_user:]
+        examples.extend((u, t) for t in points)
+    return examples
+
+
+def _pad_history(
+    seq: Dict[str, np.ndarray], end: int, max_len: int
+) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
+    """Take seq[:end], keep the most recent max_len, left-pad to max_len."""
+    start = max(0, end - max_len)
+    n = end - start
+    out = {}
+    for k in FEATURE_KEYS:
+        dtype = np.float32 if k == "duration" else np.int64
+        arr = np.zeros(max_len, dtype=dtype)
+        arr[max_len - n :] = seq[k][start:end]
+        out[k] = arr
+    valid = np.zeros(max_len, dtype=bool)
+    valid[max_len - n :] = True
+    return out, valid
+
+
+def retrieval_batches(
+    data: SyntheticRetrievalData,
+    cfg: RetrievalConfig,
+    batch_size: int,
+    seed: int = 0,
+    num_epochs: Optional[int] = None,
+    min_history: int = 5,
+    use_native: bool = True,
+    num_shards: Optional[int] = None,
+    shard_id: Optional[int] = None,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields batches:
+    ``history``: dict of [B, L] feature arrays; ``history_valid``: [B, L] bool;
+    ``target``: dict of [B] feature arrays for the positive item;
+    ``target_popularity``: [B] sampling probability (for LogQ);
+    ``history_popularity``: [B, L] sampling probability of each history item.
+
+    Every batch is assembled by the numpy path below. The JAX package
+    assembles them with a native C++ batcher when ``use_native`` and the
+    library are there, and with this numpy path otherwise; its tests hold
+    the two equal, so ``use_native`` selects nothing here and the batches
+    are the same either way (the port's native batcher is ROADMAP A19).
+
+    ``num_shards``/``shard_id``: per-process disjoint strides of the same
+    seeded permutation, as in ``ranking_batches``."""
+    examples = build_retrieval_examples(data, cfg, min_history)
+    probs = data.sampling_probs()
+    rng = np.random.default_rng(seed)
+    num_shards, shard_id = _resolve_shard(num_shards, shard_id)
+    epoch = 0
+    while num_epochs is None or epoch < num_epochs:
+        order = _shard_slice(rng.permutation(len(examples)), num_shards, shard_id)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            idx = order[i : i + batch_size]
+            hist = {k: np.zeros((batch_size, cfg.max_seq_len),
+                                dtype=np.float32 if k == "duration" else np.int64)
+                    for k in FEATURE_KEYS}
+            valid = np.zeros((batch_size, cfg.max_seq_len), dtype=bool)
+            tgt = {k: np.zeros(batch_size,
+                               dtype=np.float32 if k == "duration" else np.int64)
+                   for k in FEATURE_KEYS}
+            pop = np.zeros(batch_size, dtype=np.float32)
+            for b, e in enumerate(idx):
+                u, t = examples[e]
+                seq = data.user_sequences[u]
+                h, v = _pad_history(seq, t, cfg.max_seq_len)
+                for k in FEATURE_KEYS:
+                    hist[k][b] = h[k]
+                valid[b] = v
+                for k in FEATURE_KEYS:
+                    tgt[k][b] = seq[k][t]
+                pop[b] = probs[seq["video_id"][t]]
+            yield {
+                "history": hist,
+                "history_valid": valid,
+                "target": tgt,
+                "target_popularity": pop,
+                "history_popularity": probs[hist["video_id"]],
+            }
+        epoch += 1
 
 
 def ranking_batches(

@@ -1,4 +1,5 @@
-"""Plain band attention: additive masks and the reference softmax attention.
+"""Plain attention: additive masks, the reference softmax attention and the
+retrieval tower's multi-head attention layer.
 
 Masks are additive and finite (-1e9), so a query whose keys are all masked
 degrades to a uniform softmax rather than NaN. Logits and softmax run in
@@ -11,6 +12,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
+
+from recommend_tpu_torch.models.tokenizer import dense
 
 NEG_INF = -1e9  # large-negative mask value, safe in bf16/f32
 
@@ -58,3 +62,38 @@ def dot_product_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """Shared-weight MHA with separate query/key-value inputs (the retrieval
+    tower's and the compression encoder's). ``x_q`` and ``x_kv`` may differ
+    in length. Flax's ``DenseGeneral((h, dh))`` kernels [D, H, Dh] and the
+    output kernel [H, Dh, D] are stored flattened as ``nn.Linear`` weights;
+    every projection runs in the input's dtype."""
+
+    def __init__(self, num_heads: int, embed_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.o_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(
+        self,
+        x_q: torch.Tensor,  # [B, Lq, D]
+        x_kv: Optional[torch.Tensor] = None,  # [B, Lkv, D]
+        bias: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        if x_kv is None:
+            x_kv = x_q
+        dt = x_q.dtype
+
+        def heads(layer, x):
+            y = dense(layer, x, dt)
+            return y.reshape(*y.shape[:-1], self.num_heads, -1)
+
+        out = dot_product_attention(
+            heads(self.q_proj, x_q), heads(self.k_proj, x_kv), heads(self.v_proj, x_kv),
+            bias)
+        return dense(self.o_proj, out.flatten(-2), dt)

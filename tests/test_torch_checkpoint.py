@@ -174,9 +174,13 @@ def test_jax_trainers_config_json_loads_field_for_field(tmp_path):
     save_config(got, str(tmp_path / "port.json"))
     assert json.load(open(tmp_path / "port.json")) == json.load(
         open(tmp_path / "jax" / "config.json"))
-    jconfig.save_config(jconfig.get_config("retrieval_small"), str(tmp_path / "r.json"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        load_config(str(tmp_path / "r.json"))
+    # a retrieval config file loads too, field for field
+    rcfg = jconfig.get_config("retrieval_small")
+    jconfig.save_config(rcfg, str(tmp_path / "r.json"))
+    got = load_config(str(tmp_path / "r.json"))
+    assert type(got).__name__ == "RetrievalConfig"
+    assert [(f.name, getattr(got, f.name)) for f in dataclasses.fields(got)] == [
+        (f.name, getattr(rcfg, f.name)) for f in dataclasses.fields(rcfg)]
 
 
 def _request(seed=0):

@@ -3,9 +3,14 @@
 - ``recommend_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor flax,
   optax, orbax) nor anything of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
-- the engine, the initializer and the trainer run on CUDA unless told
-  otherwise, and raise without it; the trainer's ``checkpoint_dir`` writes
-  nothing before a save;
+- the engine, the initializers, the trainer and the retrieval entry points
+  (``RetrievalIndex``, ``RealTimeRecommender``, ``RetrievalEvaluator``) run on
+  CUDA unless told otherwise, and raise without it; the trainer's
+  ``checkpoint_dir`` writes nothing before a save;
+- what is not ported names its ROADMAP item: a ``mesh`` and the sharded
+  corpus scan name A17;
+- ``chip_smoke.py`` drives phase R (retrieval serving), whose gates no
+  ``try`` swallows;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -508,3 +513,75 @@ def test_chip_smoke_holds_the_tensor_core_backwards_at_their_edges():
         "'_ZN9band_attn4sm9029band_attn_bwd_dkv_sm90_kernelILi128EEEvNS0_7BwdMapsENS0_9BwdParamsE' "
         "for 'sm_90a'")
     assert label == "band_attn_bwd_dkv_sm90_kernel<128>"
+
+
+def _retrieval_setup():
+    from recommend_tpu_torch.convert import init_retrieval_params
+
+    cfg = tconfig.get_config("retrieval_small", embed_dim=32, num_layers=1, num_heads=2,
+                             ffn_dim=64, max_seq_len=16, compression_schedule=((8, 4), (8, 1)),
+                             video_vocab_size=500, compute_dtype="float32")
+    return cfg, init_retrieval_params(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_retrieval_params", "RetrievalIndex",
+                                   "RealTimeRecommender", "RetrievalEvaluator"])
+def test_retrieval_entry_points_without_cuda_raise_unless_told_cpu(monkeypatch, entry):
+    from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.evaluation.retrieval_eval import RetrievalEvaluator
+    from recommend_tpu_torch.serving.retrieval_service import (
+        RealTimeRecommender, RetrievalIndex)
+
+    cfg, params = _retrieval_setup()
+    index = RetrievalIndex(cfg, params, device="cpu")
+    make = {
+        "init_retrieval_params": lambda **kw: init_retrieval_params(cfg, **kw),
+        "RetrievalIndex": lambda **kw: RetrievalIndex(cfg, params, **kw),
+        "RealTimeRecommender": lambda **kw: RealTimeRecommender(cfg, params, index, **kw),
+        "RetrievalEvaluator": lambda **kw: RetrievalEvaluator(cfg, params, **kw),
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"^{entry}: no CUDA device"):
+        make()
+    made = make(device="cpu")
+    tensors = made.values() if isinstance(made, dict) else made.model.state_dict().values()
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
+def test_retrieval_mesh_and_sharded_scan_name_their_roadmap_item():
+    from recommend_tpu_torch.evaluation.retrieval_eval import RetrievalEvaluator
+    from recommend_tpu_torch.ops.topk import sharded_topk_retrieval
+    from recommend_tpu_torch.serving.retrieval_service import RetrievalIndex
+
+    cfg, params = _retrieval_setup()
+    for make in (lambda: RetrievalIndex(cfg, params, mesh=object(), device="cpu"),
+                 lambda: RetrievalEvaluator(cfg, params, mesh=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A17\) is not ported yet"):
+            make()
+    with pytest.raises(NotImplementedError, match=r"^sharded_topk_retrieval: .*\(ROADMAP A17\)"):
+        sharded_topk_retrieval(None, torch.zeros(1, 4), torch.zeros(8, 4), 2)
+
+
+def _function(tree, name):
+    return next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name)
+
+
+def test_chip_smoke_drives_phase_r_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    phase = _function(tree, "retrieval_phase")
+    main = _function(tree, "main")
+    calls = [n for n in ast.walk(main) if isinstance(n, ast.Call)
+             and any(isinstance(a, ast.Name) and a.id == "retrieval_phase"
+                     for a in [n.func, *n.args])]
+    assert calls, "main does not run phase R"
+    same_topk = _function(tree, "_same_topk")
+    for fn in (phase, main, same_topk):
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    assert len([n for n in ast.walk(same_topk) if isinstance(n, ast.Assert)]) == 2
+    gates = [ast.unparse(n.msg) for n in ast.walk(phase)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    gates += [n.args[0].value for n in ast.walk(phase) if isinstance(n, ast.Call)
+              and isinstance(n.func, ast.Name) and n.func.id == "_same_topk"]
+    for gate in ("f32 tower, card vs CPU", "flat scan", "int8 scan", "two IVF builds differ",
+                 "full-probe IVF", "recommended a seen item", "differ from index.search"):
+        assert any(gate in g for g in gates), gate
