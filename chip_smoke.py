@@ -93,8 +93,30 @@ Phases, in order; any failure raises and exits non-zero:
     scans (the same top-100 id sets, scores 1e-6 relative); at 100k items
     and 256 clusters a full-probe IVF search against the flat scan and two
     builds bit-equal; no seen item recommended, and the recommender's scores
-    those of ``index.search``;
-11. print the kernels' JSON line, then the result line.
+    those of ``index.search``; the flat index stays for RT;
+11. RT, the retrieval trainer at ``retrieval_flagship`` (full widths, the
+    10M-row video table, rowwise sparse updates at a 16,384-row scatter
+    budget, batch 256, bf16, dropout 0.1, single mode; random weights from a
+    seed; 10 batches of ``make_retrieval_data`` from 200 users, cycled; no
+    band-attention kernel, the counts held at 0). Gates: one float32 step
+    (dropout 0, the video table cut to 100k rows) of each mode, single,
+    seq2seq and masked (the masked positions handed to both), on the card
+    against the CPU from one state (loss 1e-5, grad norm 1e-4 relative,
+    each dense gradient 1e-4 of its tensor's largest, parameters, tables and
+    accumulators 1e-5 / 1e-4, the parameters against adamw of the card's
+    own gradients: see the constants of phase RT); three steps of
+    ``train()`` run twice from one seed bit-equal; at the 100k cut a run
+    resumed from a step-2 checkpoint (under build/, deleted) bit-equal to
+    an unbroken one at step 4;
+    ``sparse_dropped_rows`` 0; the state of ``train()`` handed to phase R's
+    flat index through ``refresh``: the corpus and the batch-1 and batch-64
+    top 100 (ids and scores) bit-equal to an index built fresh from it.
+    Prints, not gated: step p50/p99 and examples/s (N_TRAIN steps after
+    N_TRAIN_WARMUP, host clock, each ending in reading its loss) at the
+    preset's budget and at 0, and their ratio; device busy, idle share and
+    kernels per step from a ``torch.profiler`` trace of 3 steps; peak memory
+    allocated; IVF recall@100 at nprobe 16 after the refresh;
+12. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -1667,7 +1689,7 @@ def retrieval_phase(device="cuda", corpus=R_CORPUS, ivf_clusters=R_IVF_CLUSTERS,
         "R: the recommender's results differ from index.search"
     similar = rec.similar_to(0, top_k=10)
     assert len(similar) == 10 and all(r["video_id"] != 0 for r in similar)
-    del rec, index
+    del rec  # the flat index stays for phase RT's hand-off
 
     # incremental update: an index over all but the last R_APPEND items
     # takes them as an append (new uploads), then a refresh re-embeds all
@@ -1757,6 +1779,301 @@ def retrieval_phase(device="cuda", corpus=R_CORPUS, ivf_clusters=R_IVF_CLUSTERS,
         f"phase {time.perf_counter() - t0:.1f} s")
     for line in lines:
         log(f"{line} [{CARD}]")
+    return cfg, index, feats, valid_t
+
+
+# ---------------------------------------------------------------------------
+# phase RT: the retrieval trainer at the flagship config, handed to phase R's
+# index
+# ---------------------------------------------------------------------------
+
+# retrieval_flagship's own batch (256) and full widths, 10M-row video table.
+# make_retrieval_data draws each user's history with an rng.choice over a
+# V-entry p (O(V) host work per user): 200 users give ~5,000 examples, enough
+# for RT_BATCHES batches of 256, which the timed steps cycle.
+RT_USERS, RT_BATCHES = 200, 10
+RT_CHECK_VOCAB = 100_000  # the card-vs-CPU and resume checks' video table
+# One float32 step, dropout 0, card against CPU from one state: the loss and
+# the dense gradient norm relative to their value, each dense gradient
+# against its tensor's largest entry, the tables and accumulators (rowwise
+# adagrad, smooth in the gradient) elementwise. Adam's first step moves an
+# element by lr·g/(|g| + 1e-8), which takes the sign of a gradient within
+# rounding of 0 (every attention key bias has a zero true gradient: it adds
+# one constant to a softmax row): so the card's parameters are held to adamw
+# applied on the CPU to the card's own gradients, and their distance from
+# the CPU run's is printed.
+RT_LOSS_RTOL, RT_NORM_RTOL = 1e-5, 1e-4
+RT_STATE_ATOL, RT_STATE_RTOL = 1e-5, 1e-4
+RT_GRAD_TOL = 1e-4
+RT_DIR = Path(__file__).resolve().parent / "build" / "phase_rt"
+
+
+def _spy_grads(trainer):
+    """Keep the dense gradients each step hands the optimizer."""
+    seen = {}
+    step = trainer.optimizer.step
+
+    def wrapper(params, grads, state):
+        seen.update({k: v.detach().cpu() for k, v in grads.items()})
+        return step(params, grads, state)
+
+    trainer.optimizer.step = wrapper
+    return seen
+
+
+def _card_vs_cpu_step(cfg, mode, batch, device):
+    """One float32 step of ``mode`` on ``device`` and on the CPU from the
+    same state and masked positions -> the gate readings."""
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    params = init_retrieval_params(cfg, seed=SEED, device="cpu")
+    pos = None
+    out = {}
+    for dev in (device, "cpu"):
+        tr = RetrievalTrainer(cfg, mode=mode, device=dev)
+        if pos is None and mode == "masked":
+            pos = tr.draw_mask_positions(cfg.batch_size, torch.Generator().manual_seed(SEED))
+        grads = _spy_grads(tr)
+        st = tr.init_state(params)
+        st, m = tr._train_step(st, tr._put_batch(batch), mask_positions=pos)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in st.params.items()},
+                    {k: v.cpu() for k, v in st.opt_state[1].items()}, grads)
+    (m1, p1, a1, g1), (m0, p0, a0, g0) = out[device], out["cpu"]
+    assert np.isfinite(m1["loss"]), f"RT: {mode} f32 step loss {m1['loss']}"
+    loss_err = abs(m1["loss"] - m0["loss"]) / abs(m0["loss"])
+    norm_err = abs(m1["grad_norm"] - m0["grad_norm"]) / abs(m0["grad_norm"])
+    assert loss_err <= RT_LOSS_RTOL, f"RT: {mode} f32 step loss, card vs CPU {loss_err}"
+    assert norm_err <= RT_NORM_RTOL, f"RT: {mode} f32 step grad norm, card vs CPU {norm_err}"
+    grad_err = max(float((g1[k] - g).abs().max() / g.abs().max()) for k, g in g0.items()
+                   if not k.endswith("attn.k_proj.bias"))
+    assert grad_err <= RT_GRAD_TOL, f"RT: {mode} f32 step gradients, card vs CPU {grad_err}"
+    # adamw on the CPU from the same start, on the card's gradients
+    expect = {k: params[k].clone() for k in g1}
+    opt = tr.optimizer
+    type(opt).step(opt, expect, g1, opt.init(expect))
+    param_err = max(float(((p1[k] - v).abs() / (RT_STATE_ATOL + RT_STATE_RTOL * v.abs())).max())
+                    for k, v in expect.items())
+    assert param_err <= 1, f"RT: {mode} f32 step parameters vs adamw of the card's gradients"
+    for name in a0:
+        for got, ref, what in ((p1[name], p0[name], "table"), (a1[name], a0[name], "accumulator")):
+            ok = (got - ref).abs() <= RT_STATE_ATOL + RT_STATE_RTOL * ref.abs()
+            assert bool(ok.all()), f"RT: {mode} f32 step {what} {name}, card vs CPU"
+    off = sum(int(((p1[k] - p0[k]).abs() > RT_STATE_ATOL + RT_STATE_RTOL * p0[k].abs()).sum())
+              for k in g0)
+    cpu_diff = max(float((p1[k] - p0[k]).abs().max()) for k in g0)
+    return loss_err, norm_err, grad_err, param_err, off, cpu_diff
+
+
+def _same_state(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_state(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _trace(fn, n):
+    """(kernels, device-busy ms) per call of ``fn`` over ``n`` calls in a
+    ``torch.profiler`` trace (CUDA activity; the CPU's alone elsewhere)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    kernels = [ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels) / n, sum(kernels) / 1e3 / n
+
+
+def retrieval_training_phase(r_out, device="cuda", vocab=R_CORPUS, users=RT_USERS,
+                             check_vocab=RT_CHECK_VOCAB, ivf_clusters=R_IVF_CLUSTERS,
+                             timed_steps=N_TRAIN, batch_size=None):
+    """RT: ``RetrievalTrainer`` at ``retrieval_flagship`` (the sizes are
+    arguments so the phase rehearses on the CPU), held to its gates, then
+    its state handed to phase R's flat index through ``refresh``."""
+    import dataclasses
+    import itertools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.data.pipeline import retrieval_batches
+    from recommend_tpu_torch.data.synthetic import make_retrieval_data
+    from recommend_tpu_torch.ops.ivf import build_ivf, ivf_search_interests
+    from recommend_tpu_torch.serving.retrieval_service import RetrievalIndex
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    r_cfg, index, r_feats, r_valid = r_out
+    cfg = get_config("retrieval_flagship", video_vocab_size=vocab)
+    assert (cfg.batch_size, cfg.compute_dtype, cfg.dropout_rate, cfg.sparse_update_mode,
+            cfg.sparse_scatter_budget) == (256, "bfloat16", 0.1, "rowwise", 16_384)
+    if batch_size is not None:  # a CPU rehearsal
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    data = make_retrieval_data(cfg, num_users=users, num_videos=vocab, seed=SEED)
+    it = retrieval_batches(data, cfg, batch_size=cfg.batch_size, seed=SEED)
+    host = [next(it) for _ in range(RT_BATCHES)]
+    data_s = time.perf_counter() - t0
+    valid_rows = [int(b["history_valid"].sum()) + cfg.batch_size for b in host]
+
+    # 1. one float32 step per mode, card against CPU, at the cut video table
+    c32 = dataclasses.replace(cfg, video_vocab_size=check_vocab, compute_dtype="float32",
+                              dropout_rate=0.0, warmup_steps=0)
+    small = dict(host[0], history=dict(host[0]["history"]), target=dict(host[0]["target"]))
+    small["history"]["video_id"] = host[0]["history"]["video_id"] % check_vocab
+    small["target"]["video_id"] = host[0]["target"]["video_id"] % check_vocab
+    checks = {mode: _card_vs_cpu_step(c32, mode, small, dev)
+              for mode in ("single", "seq2seq", "masked")}
+    check_s = time.perf_counter() - t0 - data_s
+
+    # 2. three steps of train() twice from one seed: bit-equal
+    runs = []
+    for _ in range(2):
+        tr = RetrievalTrainer(cfg, device=dev)
+        st = tr.train(itertools.cycle(host), 3, log_every=1, seed=SEED)
+        runs.append((tr.history["train"], st))
+    (h1, trained), (h2, other) = runs
+    assert [h["loss"] for h in h1] == [h["loss"] for h in h2], "RT: two seeded runs' losses differ"
+    assert _same_state(trained.params, other.params), "RT: two seeded runs' parameters differ"
+    assert _same_state(trained.opt_state, other.opt_state), "RT: two seeded runs' states differ"
+    assert all(h["sparse_dropped_rows"] == 0 for h in h1), "RT: the scatter budget dropped rows"
+    del runs, other, tr
+
+    # 3. resume from a step-2 checkpoint at the cut video table, against an
+    # unbroken run (the 10M-row table would make each checkpoint 5.2 GB)
+    rcfg = dataclasses.replace(cfg, video_vocab_size=check_vocab)
+    shutil.rmtree(RT_DIR, ignore_errors=True)
+    saving = RetrievalTrainer(rcfg, checkpoint_dir=str(RT_DIR), max_to_keep=2, device=dev)
+    saving.train(iter([small] * 2), 2, log_every=1, seed=SEED)
+    ck_bytes = os.path.getsize(saving.ckpt.path(2))
+    del saving
+    resumed = RetrievalTrainer(rcfg, checkpoint_dir=str(RT_DIR), max_to_keep=2, device=dev)
+    s_res = resumed.train(iter([small] * 2), 4, log_every=1, seed=SEED)
+    whole = RetrievalTrainer(rcfg, device=dev)
+    s_all = whole.train(iter([small] * 4), 4, log_every=1, seed=SEED)
+    assert [h["step"] for h in resumed.history["train"]] == [3, 4]
+    assert resumed.history["train"][-1]["loss"] == whole.history["train"][-1]["loss"], \
+        "RT: the resumed run's loss differs from the unbroken run's"
+    assert _same_state(s_res.params, s_all.params) and _same_state(
+        s_res.opt_state, s_all.opt_state), "RT: the resumed state differs from the unbroken one"
+    del resumed, whole, s_res, s_all
+    shutil.rmtree(RT_DIR)
+
+    # 4. timing: N_TRAIN_WARMUP + timed_steps steps on batches put on the
+    # device once, each ending in reading its loss; at the preset's scatter
+    # budget and with none
+    timing = {}
+    for budget in (cfg.sparse_scatter_budget, 0):
+        tcfg = dataclasses.replace(cfg, sparse_scatter_budget=budget)
+        tr = RetrievalTrainer(tcfg, device=dev)
+        st = tr.init_state(seed=SEED)
+        gen = torch.Generator().manual_seed(SEED)
+        batches = [tr._put_batch(b) for b in host]
+        times, losses, dropped = [], [], []
+        for i in range(N_TRAIN_WARMUP + timed_steps):
+            t = time.perf_counter()
+            st, m = tr._train_step(st, batches[i % len(batches)], gen)
+            loss = float(m["loss"])  # waits for the step
+            if i >= N_TRAIN_WARMUP:
+                times.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss)
+            dropped.append(int(m.get("sparse_dropped_rows", 0)))
+        assert all(np.isfinite(losses)), f"RT: non-finite loss {losses}"
+        assert not any(dropped), f"RT: the scatter budget dropped rows {dropped}"
+
+        def step():
+            nonlocal st
+            st, _ = tr._train_step(st, batches[st.step % len(batches)], gen)
+
+        kernels, busy = _trace(step, 3)
+        timing[budget] = (np.asarray(times), losses, kernels, busy)
+        del tr, st, batches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+
+    # 5. the hand-off: train()'s state into phase R's flat index
+    t = time.perf_counter()
+    index.refresh(trained.params)
+    if on_card:
+        torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t
+    fresh = RetrievalIndex(r_cfg, trained.params, embed_batch=index.embed_batch, device=dev)
+    fresh.build(index._last_corpus)
+    assert torch.equal(index.item_embeddings, fresh.item_embeddings), \
+        "RT: the refreshed corpus differs from a fresh build's"
+    with torch.no_grad():
+        ints = fresh.model(r_feats, r_valid)
+    for tag, q in (("batch 1", ints[:1]), (f"batch {len(ints)}", ints)):
+        (s_a, i_a), (s_b, i_b) = index.search(q, R_TOPK), fresh.search(q, R_TOPK)
+        assert np.array_equal(i_a, i_b) and np.array_equal(s_a, s_b), \
+            f"RT: {tag}: the refreshed index's top {R_TOPK} differs from a fresh index's"
+    exact_ids = index.search(ints, R_TOPK)[1]
+    del fresh
+    ivf = build_ivf(index.item_embeddings, n_clusters=ivf_clusters,
+                    capacity=int(len(index.item_embeddings) / ivf_clusters * 2.5),
+                    quantize="int8", iters=R_IVF_ITERS)
+    ivf_recall = _recall(exact_ids, ivf_search_interests(
+        ivf, ints, R_TOPK, nprobe=R_IVF_NPROBE, query_chunk=R_IVF_QUERY_USERS * ints.shape[1])[1])
+    del ivf, trained, index
+    if on_card:
+        torch.cuda.empty_cache()
+
+    p = lambda a, q: float(np.percentile(a, q))
+    lines = [f"phase RT: retrieval_flagship (d {cfg.embed_dim}, {cfg.num_layers} layers, "
+             f"{cfg.num_heads} heads, ffn {cfg.ffn_dim}, {cfg.max_seq_len} items -> "
+             f"{cfg.num_compressed_tokens} tokens + {cfg.num_query_tokens} queries, bf16, "
+             f"dropout {cfg.dropout_rate}, single mode), video table {vocab} rows, rowwise "
+             f"sparse updates, batch {cfg.batch_size} | data: {users} users, {RT_BATCHES} "
+             f"batches ({min(valid_rows)}-{max(valid_rows)} valid [history ; target] rows "
+             f"each) {data_s:.1f} s | one f32 step, dropout 0, video table cut to "
+             f"{check_vocab}, card vs CPU ({check_s:.1f} s): " + "; ".join(
+                 f"{mode} loss {c[0]:.2e}, grad norm {c[1]:.2e}, gradients {c[2]:.2e} of "
+                 f"each tensor's largest, parameters {c[3]:.2f} of the 1e-5/1e-4 tolerance "
+                 f"against adamw of the card's gradients (against the CPU run's: {c[4]} "
+                 f"elements beyond it, max {c[5]:.2e}), tables and accumulators within it"
+                 for mode, c in checks.items())]
+    losses3 = ", ".join(f"{h['loss']:.4f}" for h in h1)
+    lines.append(
+        f"phase RT: train() 3 steps twice from seed {SEED}: losses {losses3} "
+        f"bit-equal, every parameter, adamw moment and accumulator bit-equal, "
+        f"sparse_dropped_rows 0 | resume at the {check_vocab}-row table: checkpoint "
+        f"{ck_bytes} bytes, step 2 -> 4 equals steps 0-4 bit for bit")
+    for budget, (tt, ll, kk, bb) in timing.items():
+        lines.append(
+            f"phase RT train step, scatter budget {budget}: n={len(tt)} p50 {p(tt, 50):.3f} ms "
+            f"p99 {p(tt, 99):.3f} ms, {cfg.batch_size * len(tt) / (tt.sum() / 1e3):.1f} "
+            f"examples/s | loss first {ll[0]:.4f} last {ll[-1]:.4f} | trace of 3 steps: "
+            f"device busy {bb:.3f} ms/step, idle {1 - bb / p(tt, 50):.1%} of the p50, "
+            f"{kk:.0f} kernels/step")
+    on, off = timing[cfg.sparse_scatter_budget][0], timing[0][0]
+    lines.append(
+        f"phase RT: budget 0 / budget {cfg.sparse_scatter_budget} step p50 "
+        f"{p(off, 50) / p(on, 50):.3f}x | peak memory allocated {peak_gb:.2f} GB (phase R's "
+        f"index included) | hand-off: refresh of phase R's flat index ({len(r_valid)} "
+        f"histories) {refresh_s:.3f} s, its corpus and its batch 1 / {len(r_valid)} top "
+        f"{R_TOPK} (ids and scores) bit-equal to a fresh index's | IVF ({ivf_clusters} "
+        f"clusters, int8, nprobe {R_IVF_NPROBE}) top-{R_TOPK} recall vs exact after 3 steps on "
+        f"synthetic data {ivf_recall:.4f} (not gated) | phase {time.perf_counter() - t0:.1f} s")
+    for line in lines:
+        log(f"{line} [{CARD}]")
 
 
 def ptxas_label(line: str) -> str:
@@ -1827,7 +2144,10 @@ def main() -> int:
     s_trunk_phase(fa, totals)
     session_phase(fa, totals)
     din_eval_phase(fa, totals, checkpoint_phase(fa, totals), examples_per_s["TA"])
-    counted(fa, retrieval_phase, {}, 1)  # no band-attention kernel
+    # no band-attention kernel in R or RT
+    r_out, _ = counted(fa, retrieval_phase, {}, 1)
+    counted(fa, lambda: retrieval_training_phase(r_out), {}, 1)
+    del r_out
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

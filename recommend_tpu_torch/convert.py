@@ -22,7 +22,10 @@ The trainer's state carries across too: ``params_from_flax`` maps the
 parameters, ``accums_from_flax`` the sparse-update accumulators (keyed by
 the flax table names ``embed_<feature>`` / ``embed_seq_item`` there, by the
 port's table parameter names here). The dense optimizer's moments start at
-zero on both sides, so the two trainers start from one state.
+zero on both sides, so the two trainers start from one state. The retrieval
+trainer's whole state carries over: ``retrieval_opt_state_from_flax`` maps
+its optax adamw moments and count and its sparse accumulators, so a JAX run
+continues in the port.
 """
 
 from __future__ import annotations
@@ -223,15 +226,19 @@ def _transformer_block(prefix: str, p: Mapping, sd: Dict[str, torch.Tensor]) -> 
         _linear(f"{prefix}.ffn.{name}", p["ffn"][name], sd)
 
 
-def retrieval_params_from_flax(tree: Mapping, cfg: RetrievalConfig) -> Dict[str, torch.Tensor]:
-    """Flax ``RetrievalTower`` params (with or without the outer ``params``
-    key) -> a state dict for ``RetrievalTower(cfg)``. A segment kept raw
-    (``group_size == 1``) has no parameters on either side."""
+_RETRIEVAL_TABLES = ("video_id", "category", "tag", "duration", "timestamp")
+
+
+def _retrieval_tree_to_sd(tree: Mapping, cfg: RetrievalConfig) -> Dict[str, torch.Tensor]:
+    """A flax ``RetrievalTower`` tree, or one shaped like it (an optax
+    moment), -> tensors under the port's names. Tables absent from the tree
+    (the JAX trainer's sparse path splits the id tables out) are left out."""
     tree = tree.get("params", tree)
     sd: Dict[str, torch.Tensor] = {}
     emb = tree["embed"]
-    for name in ("video_id", "category", "tag", "duration", "timestamp"):
-        sd[f"embed.tables.{name}.weight"] = _t(emb[name]["embedding"])
+    for name in _RETRIEVAL_TABLES:
+        if name in emb:
+            sd[f"embed.tables.{name}.weight"] = _t(emb[name]["embedding"])
     _linear("embed.fuse_hidden", emb["fuse_hidden"], sd)
     _linear("embed.fuse_out", emb["fuse_out"], sd)
     sd["embed.fuse_norm.scale"] = _t(emb["fuse_norm"]["scale"])
@@ -245,9 +252,58 @@ def retrieval_params_from_flax(tree: Mapping, cfg: RetrievalConfig) -> Dict[str,
     for i in range(cfg.num_layers):
         _transformer_block(f"blocks.{i}", tree[f"block_{i}"], sd)
     sd["final_norm.scale"] = _t(tree["final_norm"]["scale"])
+    return sd
+
+
+def retrieval_params_from_flax(tree: Mapping, cfg: RetrievalConfig) -> Dict[str, torch.Tensor]:
+    """Flax ``RetrievalTower`` params (with or without the outer ``params``
+    key) -> a state dict for ``RetrievalTower(cfg)``. A segment kept raw
+    (``group_size == 1``) has no parameters on either side."""
+    sd = _retrieval_tree_to_sd(tree, cfg)
     with torch.device("meta"):
         _check_against(sd, RetrievalTower(cfg))
     return sd
+
+
+def _find_adam_state(state):
+    """The first node of an optax state tree with ``count``, ``mu`` and
+    ``nu`` fields (optax's ``ScaleByAdamState``), or None."""
+    fields = getattr(state, "_fields", None)
+    if fields is not None and {"count", "mu", "nu"} <= set(fields):
+        return state
+    if isinstance(state, Mapping):
+        children = state.values()
+    elif fields is not None:
+        children = [getattr(state, f) for f in fields]
+    elif isinstance(state, (tuple, list)):
+        children = state
+    else:
+        return None
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def retrieval_opt_state_from_flax(
+    opt_state, cfg: RetrievalConfig,
+) -> Tuple[dict, Optional[Dict[str, torch.Tensor]]]:
+    """The JAX ``RetrievalTrainer``'s ``TrainState.opt_state`` (numpy
+    leaves) -> (the port optimizer's state ``{"count", "mu", "nu"}``, the
+    sparse-update accumulators by table parameter name, or None without
+    sparse updates). With sparse updates the JAX state is ``(optax state,
+    {table: accumulator})``; the adam moments are found inside the optax
+    state, whatever wraps them (``multi_transform``, ``masked``)."""
+    accums = None
+    if cfg.use_sparse_embedding_updates:
+        opt_state, jaccums = opt_state
+        accums = {f"embed.tables.{k}.weight": _t(v) for k, v in jaccums.items()}
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the optax state")
+    mu, nu = _retrieval_tree_to_sd(adam.mu, cfg), _retrieval_tree_to_sd(adam.nu, cfg)
+    return {"count": int(np.asarray(adam.count)), "mu": mu, "nu": nu}, accums
 
 
 @torch.no_grad()

@@ -250,11 +250,14 @@ class RetrievalTower(nn.Module):
 
 
 def load_tower(cfg: RetrievalConfig, params, device: torch.device) -> RetrievalTower:
-    """A frozen ``RetrievalTower(cfg)`` on ``device`` holding ``params`` (a
-    state dict). Tensors already on ``device`` are taken as they are, not
-    copied: towers built from one state dict share its tensors."""
+    """A frozen ``RetrievalTower(cfg)`` on ``device`` holding a copy of
+    ``params`` (a state dict), whatever device the tensors are on: a tower
+    never shares its weights with its caller or with another tower (the JAX
+    package's holders each keep their own ``params``), so a trainer's
+    in-place step never reaches a serving tower. At ``retrieval_flagship``
+    the copy costs each holder the 10M x 128 float32 video table, 5.12 GB."""
     with torch.device("meta"):
         model = RetrievalTower(cfg)
-    model.load_state_dict({k: torch.as_tensor(v).to(device) for k, v in params.items()},
-                          assign=True)
+    model.load_state_dict(
+        {k: torch.as_tensor(v).to(device, copy=True) for k, v in params.items()}, assign=True)
     return model.eval().requires_grad_(False)

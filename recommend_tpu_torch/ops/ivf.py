@@ -15,7 +15,9 @@ FAISS ``"IVF1024,Flat"``: the port of the JAX package's ``ops/ivf.py``.
   float32 transient.
 - Search: score centroids -> top-``nprobe`` buckets -> gather -> score the
   items -> top k. The gather is [N, nprobe, capacity, D], so ``query_chunk``
-  queries go through it at a time.
+  queries go through it at a time. Both selections are ``lax.top_k``'s:
+  ties go to the lower cluster, then to the earlier slot of the gathered
+  [nprobe x capacity] list (not the lower item id), in that order.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from recommend_tpu_torch.ops.topk import matmul_f32, order_by_score, quantize_corpus, to_host
+from recommend_tpu_torch.ops.topk import matmul_f32, quantize_corpus, select_topk, to_host
 
 
 class IVFIndex(NamedTuple):
@@ -161,7 +163,8 @@ def ivf_search(
     for q0 in range(0, n, chunk):
         q = queries[q0:q0 + chunk]
         m = q.shape[0]
-        _, probe = torch.topk(_l2_assign_scores(q, index.centroids), nprobe, dim=1)
+        cs = _l2_assign_scores(q, index.centroids)
+        probe = select_topk(cs, torch.arange(cs.shape[1], device=q.device), nprobe)
         embs = index.bucket_embs[probe].reshape(m, -1, q.shape[1])  # [m, P·cap, D]
         ids = index.bucket_ids[probe].reshape(m, -1)
         if index.bucket_scales is not None:
@@ -170,10 +173,9 @@ def ivf_search(
         else:
             s = matmul_f32(embs, q[:, :, None])[..., 0]
         s = torch.where(ids >= 0, s, float("-inf"))
-        top_s, pos = torch.topk(s, min(k, s.shape[1]), dim=1)
-        top_s, top_i = order_by_score(top_s, torch.gather(ids, 1, pos))
-        out_s.append(top_s)
-        out_i.append(top_i)
+        pos = select_topk(s, torch.arange(s.shape[1], device=q.device), min(k, s.shape[1]))
+        out_s.append(torch.gather(s, 1, pos))
+        out_i.append(torch.gather(ids, 1, pos))
     return torch.cat(out_s), torch.cat(out_i)
 
 
@@ -202,9 +204,10 @@ def ivf_search_interests(
     first[:, 1:] = i[:, 1:] != i[:, :-1]
     s = torch.where(first & (i >= 0), s, float("-inf"))
     kk = min(k, s.shape[1])
-    top_s, pos = torch.topk(s, kk, dim=1)
+    # the top k of the union, ties by the lower id (padding ranks last)
+    pos = select_topk(s, torch.where(i >= 0, i.long(), 2**32 - 1), kk)
+    top_s = torch.gather(s, 1, pos)
     top_i = torch.where(torch.isinf(top_s), -1, torch.gather(i, 1, pos))
-    top_s, top_i = order_by_score(top_s, top_i)
     out_s = torch.full((b, k), float("-inf"), device=s.device)
     out_i = torch.full((b, k), -1, dtype=torch.int64, device=s.device)
     out_s[:, :kk], out_i[:, :kk] = top_s, top_i

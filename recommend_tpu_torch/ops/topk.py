@@ -8,11 +8,14 @@ bf16, which would tie and reorder the top k.
 
 The scan never holds the [B, k, V] score tensor (10 GB of float32 at V = 10M,
 B = 64, k = 4): it walks the corpus in row chunks, keeps a running top k per
-query and merges each chunk's top k into it. The result is the top-k set of
-the whole corpus. Results come ordered by score, ties broken by the lower
-id (``lax.top_k``'s order); which of several ids tied at the k-th score
-enters the set is not specified (JAX takes the lowest), so tests compare on
-distinct scores.
+query and merges each chunk's top k into it. The result is ``lax.top_k``'s:
+the top k by score, ties broken by the lower id, at the k-th place too, in
+that order. ``torch.topk`` promises no order among ties, so ``select_topk``
+ranks on exact int64 keys (the score's bits, then the id), and a selection
+that ``torch.topk`` cut at a tie sends the search through those keys. Equal
+rows tie only where their products round alike: a BLAS may round a short
+last chunk's columns an ulp apart from a full one's (seen on the CPU at
+D = 4), where JAX's one product over the corpus keeps them equal.
 
 ``lax.approx_max_k`` has no PyTorch counterpart: ``recall_target`` runs the
 exact top k, which meets any recall target. The sharded scan across cards is
@@ -66,12 +69,58 @@ def score_items(interests: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     return s.reshape(b, k, -1).amax(dim=1)
 
 
-def order_by_score(scores: torch.Tensor,
-                   ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort each row by score, descending, ties by ascending id."""
-    ids, o = torch.sort(ids, dim=1)
-    scores, o2 = torch.sort(torch.gather(scores, 1, o), dim=1, descending=True, stable=True)
-    return scores, torch.gather(ids, 1, o2)
+def select_topk(scores: torch.Tensor, rank: torch.Tensor, k: int) -> torch.Tensor:
+    """Positions [B, k] of each row's top k of the float32 ``scores``,
+    highest first, equal scores by ascending ``rank`` (broadcast to the
+    scores; integers in [0, 2^32)): ``lax.top_k``'s order when ``rank`` is
+    the position. Ranked on int64 keys, the score's bits mapped to a signed
+    integer of the same order above the rank's complement, so no two keys
+    tie."""
+    bits = scores.float().contiguous().view(torch.int32)
+    ordered = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).long()
+    return torch.topk(ordered * 2**32 + (2**32 - 1 - rank.long()), k, dim=1).indices
+
+
+def _take(scores, ids, k):
+    """The top k of (scores, ids) [B, n], ties by the lower id, in order."""
+    j = select_topk(scores, ids, min(k, scores.shape[1]))
+    return torch.gather(scores, 1, j), torch.gather(ids, 1, j)
+
+
+def _select(scores, ids, k, exact):
+    """Each row's top k of ``scores`` [B, n] with their ``ids`` -> (scores,
+    ids, the rows where ``torch.topk`` cut a tie at the k-th score, or None).
+    ``exact`` ranks on ``select_topk``'s keys instead, which cut no tie."""
+    if scores.shape[1] <= k:
+        return scores, ids, None
+    if exact:
+        return (*_take(scores, ids, k), None)
+    # one more than k: a k-th score equal to the next is a tie that topk
+    # cut, and which of the tied entries it kept is unspecified
+    v, j = torch.topk(scores, k + 1, dim=1)
+    return v[:, :k], torch.gather(ids, 1, j[:, :k]), v[:, k - 1] == v[:, k]
+
+
+def _scan(n_rows, score_rows, k, chunk_rows, exact: bool):
+    """One pass over the chunks, a running top k merged with each chunk's
+    -> (scores, ids, the rows where a selection cut a tie, or None)."""
+    best_s = best_i = cut = None
+    for r0 in range(0, n_rows, chunk_rows):
+        s = score_rows(r0, min(r0 + chunk_rows, n_rows))
+        ids = torch.arange(r0, r0 + s.shape[1], device=s.device).expand(s.shape[0], -1)
+        v, i, tie = _select(s, ids, k, exact)
+        cut = _either(cut, tie)
+        if best_s is not None:
+            v, i, tie = _select(torch.cat([best_s, v], dim=1), torch.cat([best_i, i], dim=1),
+                                k, exact)
+            cut = _either(cut, tie)
+        best_s, best_i = v, i
+    return best_s, best_i, cut
+
+
+def _either(a, b):
+    """a | b of two optional boolean masks."""
+    return b if a is None else a if b is None else a | b
 
 
 def _scan_topk(
@@ -82,18 +131,15 @@ def _scan_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top k over the columns that ``score_rows(r0, r1)`` ([B, r1 - r0]
     scores of corpus rows r0..r1) gives, chunk by chunk, keeping a running
-    top k."""
-    best_s = best_i = None
-    for r0 in range(0, n_rows, chunk_rows):
-        s = score_rows(r0, min(r0 + chunk_rows, n_rows))
-        v, i = torch.topk(s, min(k, s.shape[1]), dim=1, sorted=False)
-        i = i + r0
-        if best_s is not None:
-            v, i = torch.cat([best_s, v], dim=1), torch.cat([best_i, i], dim=1)
-            v, j = torch.topk(v, min(k, v.shape[1]), dim=1, sorted=False)
-            i = torch.gather(i, 1, j)
-        best_s, best_i = v, i
-    return order_by_score(best_s, best_i)
+    top k, in ``lax.top_k``'s set and order. The chunks and the merges
+    select with ``torch.topk``; where one cut a tie at its k-th score, the
+    scan runs again on exact keys (one wait on the device per search, after
+    the result is queued)."""
+    s, i, cut = _scan(n_rows, score_rows, k, chunk_rows, exact=False)
+    out = _take(s, i, k)
+    if cut is not None and bool(cut.any()):
+        out = _take(*_scan(n_rows, score_rows, k, chunk_rows, exact=True)[:2], k)
+    return out
 
 
 def _chunk_rows(query_rows: int, chunk_rows: Optional[int]) -> int:

@@ -63,7 +63,9 @@ class RetrievalIndex:
         approx_recall: Optional[float] = None,
         device=None,
     ):
-        """``params``: a state dict of ``RetrievalTower(cfg)``."""
+        """``params``: a state dict of ``RetrievalTower(cfg)``, copied into
+        the index's own tower; ``refresh`` is the only way new weights
+        reach it."""
         assert index_type in ("flat", "ivf"), index_type
         assert quantize in (None, "int8"), quantize
         if mesh is not None:
@@ -258,8 +260,8 @@ class RealTimeRecommender:
         window: Optional[int] = None,
         device=None,
     ):
-        """``params``: the tower's state dict; built from the same tensors
-        on the device, the index's tower and this one share them."""
+        """``params``: the tower's state dict, copied: the recommender keeps
+        its own weights, which ``index.refresh`` does not change."""
         self.cfg = cfg
         self.device = resolve_device(device, "RealTimeRecommender")
         if index.device != self.device:

@@ -1,6 +1,6 @@
-"""The ranking optimizer and its learning-rate schedules, written by hand
-with optax's semantics (the port's counterpart of the ranking half of the
-JAX package's ``training/optimizer.py``).
+"""The optimizers and their learning-rate schedules, written by hand with
+optax's semantics (the port's counterpart of the JAX package's
+``training/optimizer.py``).
 
 ``make_ranking_optimizer`` is optax's
 ``chain(clip_by_global_norm(clip), multi_transform({"dense": d, "sparse": s}))``
@@ -11,7 +11,15 @@ differ from ``torch.optim``, optax's choices hold: rmsprop decays at 0.9
 with eps inside the square root, then scales by -lr, then adds the momentum
 trace; the clip divides by the bare global norm (no 1e-6).
 
-``RankingOptimizer.step`` updates parameters and state IN PLACE.
+``make_retrieval_optimizer`` is the retrieval tower's ``optax.adamw`` on the
+warmup-cosine schedule, with the config's b1/b2, eps 1e-8 outside the square
+root and no gradient clip; weight decay applies to every tensor it updates.
+With sparse embedding updates the id tables are left to the touched-row path
+(optax's ``set_to_zero`` there): the optimizer keeps no state for them and
+never writes them.
+
+``RankingOptimizer.step`` and ``RetrievalOptimizer.step`` update parameters
+and state IN PLACE.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ from typing import Callable, Dict, Iterable, Union
 import numpy as np
 import torch
 
-from recommend_tpu_torch.config import RankingConfig
+from recommend_tpu_torch.config import RankingConfig, RetrievalConfig
 
 Schedule = Union[float, Callable[[int], float]]
 Tensors = Dict[str, torch.Tensor]
@@ -159,3 +167,47 @@ class RankingOptimizer:
 def make_ranking_optimizer(cfg: RankingConfig, total_steps: int = 0,
                            sparse_names: Iterable[str] = ()) -> RankingOptimizer:
     return RankingOptimizer(cfg, total_steps, sparse_names)
+
+
+class RetrievalOptimizer:
+    """``optax.adamw(warmup_cosine, b1, b2, eps=1e-8, weight_decay)`` over a
+    dict of named tensors; the names in ``frozen`` are skipped."""
+
+    def __init__(self, cfg: RetrievalConfig, total_steps: int = 100_000,
+                 frozen: Iterable[str] = ()):
+        self.cfg = cfg
+        self.lr = warmup_cosine_schedule(cfg.learning_rate, cfg.warmup_steps, total_steps)
+        self.frozen = frozenset(frozen)
+
+    def init(self, params: Tensors) -> dict:
+        names = [n for n in params if n not in self.frozen]
+        return {"count": 0, "mu": {n: torch.zeros_like(params[n]) for n in names},
+                "nu": {n: torch.zeros_like(params[n]) for n in names}}
+
+    @torch.no_grad()
+    def step(self, params: Tensors, grads: Tensors, state: dict) -> None:
+        """One update of ``params`` and ``state`` in place, from ``grads``
+        (frozen names in it are ignored)."""
+        cfg = self.cfg
+        b1, b2 = cfg.adam_b1, cfg.adam_b2
+        count = state["count"]
+        lr = self.lr(count)
+        c1, c2 = _bias_correction(b1, count + 1), _bias_correction(b2, count + 1)
+        for n, g in grads.items():
+            if n in self.frozen:
+                continue
+            p, mu, nu = params[n], state["mu"][n], state["nu"][n]
+            mu.copy_(g * (1 - b1) + mu * b1)
+            nu.copy_(g.square() * (1 - b2) + nu * b2)
+            u = (mu / c1) / (torch.sqrt(nu / c2) + 1e-8) + cfg.weight_decay * p
+            p.add_(u * -lr)
+        state["count"] = count + 1
+
+
+def make_retrieval_optimizer(cfg: RetrievalConfig, total_steps: int = 100_000,
+                             table_names: Iterable[str] = ()) -> RetrievalOptimizer:
+    """The retrieval trainer's dense optimizer. ``table_names``: the id
+    tables' parameter names, frozen when ``use_sparse_embedding_updates``
+    is on."""
+    return RetrievalOptimizer(
+        cfg, total_steps, table_names if cfg.use_sparse_embedding_updates else ())

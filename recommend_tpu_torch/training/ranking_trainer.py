@@ -67,7 +67,7 @@ Tensors = Dict[str, torch.Tensor]
 
 
 class TrainState(NamedTuple):
-    params: Tensors  # RankingModel state-dict names -> tensors
+    params: Tensors  # the model's state-dict names -> tensors
     opt_state: Any  # optimizer state, or (optimizer state, accumulators)
     step: int
 

@@ -3,14 +3,15 @@
 - ``recommend_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor flax,
   optax, orbax) nor anything of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
-- the engine, the initializers, the trainer and the retrieval entry points
-  (``RetrievalIndex``, ``RealTimeRecommender``, ``RetrievalEvaluator``) run on
-  CUDA unless told otherwise, and raise without it; the trainer's
+- the engine, the initializers, the trainers and the retrieval entry points
+  (``RetrievalIndex``, ``RealTimeRecommender``, ``RetrievalEvaluator``,
+  ``RetrievalTrainer``) run on CUDA unless told otherwise, and raise without
+  it; the trainer's
   ``checkpoint_dir`` writes nothing before a save;
 - what is not ported names its ROADMAP item: a ``mesh`` and the sharded
   corpus scan name A17;
-- ``chip_smoke.py`` drives phase R (retrieval serving), whose gates no
-  ``try`` swallows;
+- ``chip_smoke.py`` drives phase R (retrieval serving) and phase RT (the
+  retrieval trainer, handed to R's index), whose gates no ``try`` swallows;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -47,7 +48,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommend_tpu")
 def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
-        ROOT / "profile_kernels.py"]
+        ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py"]
 
 
 def _imported_modules(path: Path):
@@ -585,3 +586,48 @@ def test_chip_smoke_drives_phase_r_and_no_try_swallows_its_gates():
     for gate in ("f32 tower, card vs CPU", "flat scan", "int8 scan", "two IVF builds differ",
                  "full-probe IVF", "recommended a seen item", "differ from index.search"):
         assert any(gate in g for g in gates), gate
+
+
+def test_retrieval_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    cfg, _ = _retrieval_setup()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="^RetrievalTrainer: no CUDA device"):
+        RetrievalTrainer(cfg)
+    state = RetrievalTrainer(cfg, device="cpu").init_state(seed=0)
+    assert all(t.device.type == "cpu" for t in state.params.values())
+
+
+def test_retrieval_trainer_mesh_error_names_its_roadmap_item():
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    cfg, _ = _retrieval_setup()
+    with pytest.raises(NotImplementedError,
+                       match=r"^RetrievalTrainer: multi-device training \(ROADMAP A17\) is not "
+                             r"ported yet$"):
+        RetrievalTrainer(cfg, device="cpu", mesh=object())
+
+
+def test_chip_smoke_drives_phase_rt_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    calls = [n for n in ast.walk(main) if isinstance(n, ast.Call)
+             and any(isinstance(a, ast.Name) and a.id == "retrieval_training_phase"
+                     for a in ast.walk(n))]
+    assert calls, "main does not run phase RT"
+    fns = [_function(tree, name) for name in
+           ("retrieval_training_phase", "_card_vs_cpu_step", "_same_state", "main")]
+    for fn in fns:
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    gates = [ast.unparse(n.msg) for fn in fns[:2] for n in ast.walk(fn)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in ("f32 step loss, card vs CPU", "f32 step grad norm", "f32 step gradients",
+                 "adamw of the card's gradients", "f32 step {what} {name}", "two seeded runs' losses differ",
+                 "two seeded runs' parameters differ", "resumed state differs",
+                 "scatter budget dropped rows", "refreshed corpus differs",
+                 "differs from a fresh index's"):
+        assert any(gate in g for g in gates), gate
+    # every mode takes the card-vs-CPU step
+    phase = ast.unparse(fns[0])
+    assert "('single', 'seq2seq', 'masked')" in phase

@@ -15,8 +15,9 @@ the same seeded inputs:
   int8, incremental updates, refresh, similar items), the
   ``RealTimeRecommender`` flow, and the ``RetrievalEvaluator`` metrics.
 
-Ids are compared where the scores are distinct: ties at the k-th score may
-enter the top k in another order (``ops/topk.py``); the inputs here have none.
+Ties follow ``lax.top_k``: a corpus of duplicated rows (and an IVF index
+with duplicated centroids) gives the same ids in the same order as JAX, also
+when the scan's chunks split the tied rows.
 """
 
 import jax
@@ -135,6 +136,74 @@ def test_tied_scores_come_back_lower_id_first():
     s, i = ttopk.topk_retrieval(torch.ones(1, 4), torch.as_tensor(items), 4, chunk_rows=3)
     assert i.tolist() == [[7, 0, 5, 8]]
     assert s.tolist() == [[8.0, 4.0, 4.0, 4.0]]
+
+
+def _duplicated_corpus(n=400, distinct=30, d=16, seed=0):
+    """Rows drawn from ``distinct`` rows: every score ties with others."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(distinct, d)).astype(np.float32)
+    return base[rng.integers(0, distinct, n)], rng.normal(size=(3, 4, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, 7, 50], ids=["one_chunk", "chunks_of_7", "chunks_of_50"])
+def test_ties_follow_lax_top_k(chunk_rows):
+    """Duplicated rows tie at every place, the k-th too: the flat and int8
+    scans return JAX's ids in JAX's order (the lowest tied ids, ascending)."""
+    items, q = _duplicated_corpus()
+    js, ji = jtopk.topk_retrieval(jnp.asarray(q), jnp.asarray(items), 25)
+    ts, ti = ttopk.topk_retrieval(torch.as_tensor(q), torch.as_tensor(items), 25,
+                                  chunk_rows=chunk_rows)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    scores_close(ts.numpy(), np.asarray(js))
+    jq, jsc = jtopk.quantize_corpus(jnp.asarray(items))
+    tq, tsc = ttopk.quantize_corpus(torch.as_tensor(items))
+    js, ji = jtopk.topk_retrieval_quantized(jnp.asarray(q), jq, jsc, 25)
+    ts, ti = ttopk.topk_retrieval_quantized(torch.as_tensor(q), tq, tsc, 25,
+                                            chunk_rows=chunk_rows)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_chunked_selection_equals_lax_top_k():
+    """The scan's selection alone, on one precomputed score matrix sliced
+    into chunks (so that equal scores stay equal whatever the chunk):
+    heavy ties, -inf, every k and chunk size drawn at random, against
+    ``lax.top_k`` (scores and ids, in order)."""
+    rng = np.random.default_rng(5)
+    for _ in range(60):
+        n = int(rng.integers(1, 200))
+        vals = np.round(rng.normal(size=(3, n)), int(rng.integers(0, 2))).astype(np.float32)
+        vals[:, rng.integers(0, n, n // 4)] = -np.inf
+        k, chunk = int(rng.integers(1, n + 1)), int(rng.integers(1, n + 5))
+        js, ji = jax.lax.top_k(jnp.asarray(vals), k)
+        scores = torch.as_tensor(vals)
+        ts, ti = ttopk._scan_topk(n, lambda r0, r1: scores[:, r0:r1], k, chunk)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji), err_msg=f"{n} {k} {chunk}")
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_ivf_ties_follow_lax_top_k():
+    """Two clusters with one centroid, and one row stored under a high id in
+    the first bucket and a low id in the second: the probes tie (the lower
+    cluster first) and so do the items, which JAX orders by their slot in
+    the gathered list, not by id."""
+    rng = np.random.default_rng(1)
+    d, cap = 8, 4
+    rows = rng.normal(size=(6, d)).astype(np.float32)
+    centroids = rng.normal(size=(3, d)).astype(np.float32)
+    centroids[1] = centroids[0]
+    bucket_ids = np.array([[9, 11, 12, -1], [3, 4, 13, -1], [5, 6, 7, 8]], np.int32)
+    # id 9 (bucket 0) and id 3 (bucket 1) hold one row; 11/4 another
+    embs = np.stack([rows[[0, 1, 2, 0]], rows[[0, 1, 3, 0]], rows[[4, 5, 4, 5]]])
+    j = jivf.IVFIndex(jnp.asarray(centroids), jnp.asarray(bucket_ids), jnp.asarray(embs))
+    t = _converted(j)
+    q = np.concatenate([centroids[:1] + 0.01 * rng.normal(size=(1, d)),
+                        rows[:2]]).astype(np.float32)
+    for nprobe, k in ((2, 6), (3, 10), (1, 3)):
+        js, ji = jivf.ivf_search(j, jnp.asarray(q), k, nprobe)
+        ts, ti = tivf.ivf_search(t, torch.as_tensor(q), k, nprobe)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji), err_msg=f"nprobe {nprobe}")
+        scores_close(ts.numpy(), np.asarray(js))
+    assert ti.numpy()[0, 0] == 9  # the higher id, first in the gathered list
 
 
 # -- ops/ivf -----------------------------------------------------------------
@@ -354,6 +423,48 @@ def test_recommender_flow_matches(setup):
     stats = tr.stats()
     assert stats["requests"] == 7 and stats["latency_ms_p50"] > 0
     assert RealTimeRecommender(tcfg, sd, t, device="cpu").stats() == {"requests": 0}
+
+
+def test_recommender_keeps_its_own_weights(setup):
+    """A recommender built from the state dict its index was built from
+    copies it: writing the source tensors, or refreshing the index, leaves
+    the recommender's interests as they were (JAX: each holder keeps its
+    own ``params``)."""
+    cfg, tcfg, model, params, sd, data = setup
+    src = {k: v.clone() for k, v in sd.items()}
+    index = RetrievalIndex(tcfg, src, embed_batch=64, device="cpu")
+    index.build(data.corpus_features())
+    rec = RealTimeRecommender(tcfg, src, index, device="cpu")
+    seq = data.user_sequences[1]
+    for n in range(len(seq["video_id"])):
+        rec.add_interaction("u", {k: seq[k][n].item() for k in seq})
+    before = rec.user_interests("u").clone()
+    ranked = [r["video_id"] for r in rec.get_recommendations("u", top_k=8)]
+    for v in src.values():
+        v.mul_(1.5)
+    assert torch.equal(rec.user_interests("u"), before)
+    assert [r["video_id"] for r in rec.get_recommendations("u", top_k=8)] == ranked
+    index.refresh(src)
+    assert torch.equal(rec.user_interests("u"), before)
+    assert not any(a.data_ptr() == b.data_ptr() for a, b in
+                   zip(rec.model.state_dict().values(), index.model.state_dict().values()))
+
+
+def test_benchmark_latency_copies_the_batch_once(setup, monkeypatch):
+    """The batch goes to the device once, before the warm-up; the timed
+    calls copy nothing (JAX's ``benchmark_latency`` puts it once too)."""
+    cfg, tcfg, model, params, sd, data = setup
+    batch = first_batch(cfg, bs=4)
+    ev = RetrievalEvaluator(tcfg, sd, device="cpu")
+    ev.index.build(data.corpus_features())
+    puts = []
+    put = ev._put
+    monkeypatch.setattr(ev, "_put", lambda features: puts.append(1) or put(features))
+    lat = ev.benchmark_latency(batch, n_iters=5, warmup=2)
+    assert lat["batch_size"] == 4
+    once = len(puts)
+    ev.benchmark_latency(batch, n_iters=9, warmup=4)
+    assert 0 < once == len(puts) - once  # the same copies, whatever the call count
 
 
 def test_evaluator_matches(setup, tmp_path):
