@@ -115,8 +115,36 @@ Phases, in order; any failure raises and exits non-zero:
     N_TRAIN_WARMUP, host clock, each ending in reading its loss) at the
     preset's budget and at 0, and their ratio; device busy, idle share and
     kernels per step from a ``torch.profiler`` trace of 3 steps; peak memory
-    allocated; IVF recall@100 at nprobe 16 after the refresh;
-12. print the kernels' JSON line, then the result line.
+    allocated; IVF recall@100 at nprobe 16 after the refresh; returns its
+    data for L and N;
+12. L, LLM4Rec: the semantic-distillation student at its own widths (teacher
+    768, hidden 256, 4 heads x 32) on 4,096 seeded teacher vectors: one
+    float32 forward + loss + backward on the card against the CPU (loss 1e-5
+    relative, each gradient 1e-4 of its tensor's largest), then N_TRAIN
+    timed passes; ``build_semantic_ids`` (1024 clusters, 10 iterations) twice
+    over phase R's 10M item vectors but the last 1,000, bit-equal (the
+    retrieval tower's vectors stand in for LLM item embeddings), ``assign``
+    of the 1,000 held-back items (each at its nearest centroid),
+    ``map_ids`` with the padding sentinel, ``remap_retrieval_data`` of RT's
+    data and N_TRAIN timed ``RetrievalTrainer`` steps over the semantic
+    vocabulary (1,025 ids, batch 256, bf16, single mode); then phase R's
+    index is freed, and a stub LLM (replies from a hash of the prompt, no
+    model downloaded) through ``IntentPromptGenerator``, whose axis encoder
+    is the student's user-tower head of each axis on a per-label teacher
+    vector, fills an ``IntentCache`` (10,000 users precomputed, then hits,
+    synchronous misses and stale entries, their counts asserted), whose
+    ``batch_get`` gives the ``user_intent`` [512, 128] of ``RankingTrainer``
+    steps at phase TA's config: the intent reaches the trainer as float32
+    and moves the logits, N_TRAIN timed bf16 steps with their B1f/B1b
+    launches counted, a trace, and a float32 kernels-vs-plain step at TA's
+    tolerances;
+13. N, the data layer: the port's C++ batcher built with g++ (timed), RT's
+    data batched at ``retrieval_flagship`` by the native and the numpy path
+    (N_BATCHES each, bit-equal, batches per second), ``AliasSampler``'s
+    draws against its probabilities (chi-square), ``make_ml1m_replica`` at
+    full scale and ``make_onetrans_replica`` at its defaults (seconds and
+    sizes);
+14. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -802,7 +830,7 @@ def training_config(num_heads: int, batch_size: int, **overrides):
         dense_lr=1e-3, dense_momentum=0.9, sparse_lr=0.05, **overrides)
 
 
-def step_vs_plain(cfg, params, batch, mixed: bool):
+def step_vs_plain(cfg, params, batch, mixed: bool, device="cuda"):
     """One step through the kernels and one through the plain attention
     path from the same params on the same batch, in float32 or (``mixed``)
     bf16 -> (loss, grad norm, table update) relative differences."""
@@ -813,7 +841,7 @@ def step_vs_plain(cfg, params, batch, mixed: bool):
     results = []
     for flash in (True, False):
         c = dataclasses.replace(cfg, use_mixed_precision=mixed, use_flash_attention=flash)
-        trainer = RankingTrainer(c, device="cuda")
+        trainer = RankingTrainer(c, device=device)
         state = trainer.init_state(params)
         state, m = trainer._train_step(state, trainer._put_batch(batch))
         updates = {n: state.params[n] - params[n] for n in trainer.tables}
@@ -824,6 +852,26 @@ def step_vs_plain(cfg, params, batch, mixed: bool):
     norm_err = abs(n1 - n2) / abs(n2)
     table_err = max(((u1[k] - u2[k]).abs().max() / u2[k].abs().max()).item() for k in u2)
     return loss_err, norm_err, table_err
+
+
+def time_train_steps(fa, totals, trainer, state, batches, per_step, steps=N_TRAIN):
+    """``steps`` train steps cycling ``batches``, each ending in reading
+    its loss, under ``counted`` (``per_step`` launches a step), their
+    launches added to ``totals`` -> (state, ms per step, losses, launches)."""
+    times, losses = [], []
+
+    def run():
+        nonlocal state
+        for i in range(steps):
+            t = time.perf_counter()
+            state, m = trainer._train_step(state, batches[i % len(batches)])
+            losses.append(float(m["loss"]))  # waits for the step
+            times.append((time.perf_counter() - t) * 1e3)
+
+    _, got = counted(fa, run, per_step, steps)
+    for k in got:
+        totals[k] += got[k]
+    return state, times, losses, got
 
 
 def train_phase(label, heads, items, batch_size, per_step, fa, totals):
@@ -849,21 +897,8 @@ def train_phase(label, heads, items, batch_size, per_step, fa, totals):
         state, m = trainer._train_step(state, batches[i % len(batches)])
         assert np.isfinite(float(m["loss"])), f"{label}: warm-up loss {m['loss']}"
     setup_s = time.perf_counter() - t0
-
-    times, losses = [], []
-
-    def run():
-        nonlocal state
-        for i in range(N_TRAIN):
-            t = time.perf_counter()
-            state, m = trainer._train_step(state, batches[i % len(batches)])
-            loss = float(m["loss"])  # waits for the step
-            times.append((time.perf_counter() - t) * 1e3)
-            losses.append(loss)
-
-    _, got = counted(fa, run, per_step, N_TRAIN)
-    for k in got:
-        totals[k] += got[k]
+    state, times, losses, got = time_train_steps(fa, totals, trainer, state, batches,
+                                                 per_step)
     assert all(np.isfinite(losses)), f"{label}: non-finite loss {losses}"
     del trainer, state
     torch.cuda.empty_cache()
@@ -1870,10 +1905,13 @@ def _card_vs_cpu_step(cfg, mode, batch, device):
 
 
 def _same_state(a, b) -> bool:
+    import numpy as np
     import torch
 
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
     if isinstance(a, dict):
         return set(a) == set(b) and all(_same_state(a[k], b[k]) for k in a)
     if isinstance(a, (tuple, list)):
@@ -2074,6 +2112,454 @@ def retrieval_training_phase(r_out, device="cuda", vocab=R_CORPUS, users=RT_USER
         f"synthetic data {ivf_recall:.4f} (not gated) | phase {time.perf_counter() - t0:.1f} s")
     for line in lines:
         log(f"{line} [{CARD}]")
+    return data
+
+
+# ---------------------------------------------------------------------------
+# phase L: LLM4Rec
+# ---------------------------------------------------------------------------
+
+# L, distillation: SemanticDistillConfig's own widths, a batch of seeded
+# teacher vectors drawn on the card. One float32 forward + loss + backward,
+# card against CPU: the loss relative to its value, each gradient against
+# its tensor's largest entry (the in-batch softmax sums 4,096 columns in
+# another order on each side).
+L_DISTILL_BATCH = 4096
+L_LOSS_RTOL, L_GRAD_TOL = 1e-5, 1e-4
+# L, semantic ids: k-means over phase R's item vectors (the retrieval
+# tower's, standing in for LLM item embeddings: no LLM weights are in the
+# repository), all but the last L_HELD items, which then take their nearest
+# centroid (the cold-start path). A held-back item's centroid is the nearest
+# in float64 on the CPU up to the float32 rounding of the assignment's
+# x·c - |c|²/2 (128 products): its squared distance exceeds the least by at
+# most L_ASSIGN_TOL of |x|² + |c|².
+L_CLUSTERS, L_ITERS, L_HELD = 1024, 10, 1000
+L_ASSIGN_TOL = 1e-5
+# L, intents: users precomputed into the cache; labels per intent axis
+L_USERS, L_AXIS_LABELS = 10_000, 8
+L_INTENT = "user_intent"
+
+
+def distill_phase(device="cuda", batch=L_DISTILL_BATCH, passes=N_TRAIN):
+    """L, distillation: the semantic-distillation student at its own
+    widths, one float32 step held card against CPU, then ``passes`` timed
+    forward + loss + backward passes. Returns the student (its user tower
+    encodes the intents of ``intent_phase``)."""
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_semantic_distill_params
+    from recommend_tpu_torch.llm4rec import (
+        SemanticDistillConfig,
+        SemanticDistillModel,
+        semantic_distill_loss,
+    )
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = SemanticDistillConfig()
+    assert (cfg.teacher_dim, cfg.hidden_dim, cfg.num_heads, cfg.head_dim) == (768, 256, 4, 32)
+    params = init_semantic_distill_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    user = torch.randn(batch, cfg.teacher_dim, generator=gen, device=dev)
+    item = torch.randn(batch, cfg.teacher_dim, generator=gen, device=dev)
+    card, cpu = SemanticDistillModel(cfg).to(dev), SemanticDistillModel(cfg)
+    card.load_state_dict(params)
+    cpu.load_state_dict(params)
+
+    def step(model, u, it):
+        model.zero_grad(set_to_none=True)
+        loss, metrics = semantic_distill_loss(cfg, model(u, it), u, it)
+        loss.backward()
+        return loss, metrics
+
+    (l1, m1), (l0, _) = step(card, user, item), step(cpu, user.cpu(), item.cpu())
+    l1, l0 = float(l1.detach()), float(l0.detach())
+    loss_err = abs(l1 - l0) / abs(l0)
+    grad_err = max(float((p1.grad.cpu() - p0.grad).abs().max() / p0.grad.abs().max())
+                   for p1, p0 in zip(card.parameters(), cpu.parameters()))
+    assert loss_err <= L_LOSS_RTOL, f"L: distill f32 step loss, card vs CPU {loss_err}"
+    assert grad_err <= L_GRAD_TOL, f"L: distill f32 step gradients, card vs CPU {grad_err}"
+    times = []
+    for i in range(passes + 1):  # the first is a warm-up
+        t = time.perf_counter()
+        loss = float(step(card, user, item)[0].detach())
+        assert np.isfinite(loss), f"L: distill loss {loss}"
+        sync()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+    card.zero_grad(set_to_none=True)
+    p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
+    log(f"phase L distill: SemanticDistillConfig (teacher {cfg.teacher_dim}, hidden "
+        f"{cfg.hidden_dim}, {cfg.num_heads} heads x {cfg.head_dim}), batch {batch} of seeded "
+        f"teacher vectors, float32 | one step card vs CPU: loss {loss_err:.2e}, gradients "
+        f"{grad_err:.2e} of each tensor's largest | forward + loss + backward n={len(times)} "
+        f"p50 {p50:.3f} ms p99 {p99:.3f} ms, {batch / p50 * 1e3:.1f} examples/s | loss "
+        f"{l1:.4f} (match {float(m1['match_loss']):.4f}, user distill "
+        f"{float(m1['user_distill_loss']):.4f}, item distill "
+        f"{float(m1['item_distill_loss']):.4f}) | phase {time.perf_counter() - t0:.1f} s "
+        f"[{CARD}]")
+    return card.eval()
+
+
+def semantic_id_phase(r_out, rt_data, n_clusters=L_CLUSTERS, iters=L_ITERS, held=L_HELD,
+                      timed_steps=N_TRAIN, batch_size=None):
+    """L, semantic ids: ``build_semantic_ids`` twice over phase R's item
+    vectors but the last ``held`` (bit-equal), ``assign`` of the held-back
+    items, ``map_ids`` with the padding sentinel, ``remap_retrieval_data`` of
+    phase RT's data, and timed ``RetrievalTrainer`` steps over the semantic
+    vocabulary (the sizes are arguments so the phase rehearses on the CPU)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.data.pipeline import retrieval_batches
+    from recommend_tpu_torch.llm4rec import SemanticIdMap, build_semantic_ids, remap_retrieval_data
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    t0 = time.perf_counter()
+    items = r_out[1].item_embeddings  # [V, D], on the index's device
+    dev = items.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    v = items.shape[0]
+    assert v == rt_data.num_videos, (v, rt_data.num_videos)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    builds, build_s = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        builds.append(build_semantic_ids(items[:v - held], n_clusters, iters, seed=SEED))
+        sync()
+        build_s.append(time.perf_counter() - t)
+    sid_map, again = builds
+    assert torch.equal(sid_map.centroids, again.centroids) and np.array_equal(
+        sid_map.item_to_sid, again.item_to_sid), "L: two semantic-id builds differ"
+    del builds, again
+    sizes = np.bincount(sid_map.item_to_sid, minlength=n_clusters)
+
+    # the cold-start path: the held-back items take their nearest centroid
+    t = time.perf_counter()
+    cold = sid_map.assign(items[v - held:])
+    sync()
+    assign_ms = (time.perf_counter() - t) * 1e3
+    assert cold.device == dev and cold.dtype == torch.int32 and cold.shape == (held,)
+    x, c = items[v - held:].double().cpu(), sid_map.centroids.double().cpu()
+    d2 = torch.cdist(x, c).square()
+    got = d2.gather(1, cold.cpu().long()[:, None])[:, 0]
+    excess = float(((got - d2.min(dim=1).values)
+                    / (x.square().sum(1) + c[cold.cpu().long()].square().sum(1))).max())
+    assert excess <= L_ASSIGN_TOL, \
+        f"L: a held-back item's semantic id is not its nearest centroid ({excess:.2e})"
+    full = SemanticIdMap(sid_map.centroids,
+                         np.concatenate([sid_map.item_to_sid, cold.cpu().numpy()]))
+    ids = np.array([0, v - held - 1, v - held, v - 1, v])  # ..., the padding sentinel v
+    mapped = full.map_ids(ids)
+    assert list(mapped) == [*full.item_to_sid[ids[:-1]], n_clusters] and \
+        sid_map.map_ids(np.array([v - held]))[0] == n_clusters, "L: map_ids"
+
+    # next-semantic-id training on phase RT's data over the semantic ids
+    t = time.perf_counter()
+    sdata = remap_retrieval_data(rt_data, full)
+    remap_s = time.perf_counter() - t
+    assert sdata.num_videos == n_clusters and sdata.popularity.sum() == rt_data.popularity.sum()
+    cfg = get_config("retrieval_flagship", video_vocab_size=n_clusters + 1,
+                     warmup_steps=N_TRAIN_WARMUP)
+    assert (cfg.batch_size, cfg.compute_dtype) == (256, "bfloat16")
+    if batch_size is not None:  # a CPU rehearsal
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    it = retrieval_batches(sdata, cfg, cfg.batch_size, seed=SEED)
+    host = [next(it) for _ in range(RT_BATCHES)]
+    assert all(b["target"]["video_id"].max() < n_clusters for b in host)
+    tr = RetrievalTrainer(cfg, device=dev)
+    st = tr.init_state(seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    batches = [tr._put_batch(b) for b in host]
+    times, losses = [], []
+    for i in range(N_TRAIN_WARMUP + timed_steps):
+        t = time.perf_counter()
+        st, m = tr._train_step(st, batches[i % len(batches)], gen)
+        loss = float(m["loss"])  # waits for the step
+        if i >= N_TRAIN_WARMUP:
+            times.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+    assert all(np.isfinite(losses)), f"L: non-finite next-semantic-id loss {losses}"
+    del tr, st, batches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
+    p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
+    log(f"phase L semantic ids: {v - held} of phase R's {v} item vectors ({items.shape[1]} "
+        f"dims, {str(items.dtype).split('.')[1]}; the retrieval tower's, standing in for LLM "
+        f"embeddings) -> {n_clusters} clusters, {iters} iterations: builds "
+        f"{build_s[0]:.2f} / {build_s[1]:.2f} s, bit-equal; cluster sizes min {sizes.min()} "
+        f"median {int(np.median(sizes))} max {sizes.max()} | assign of {held} held-back items "
+        f"{assign_ms:.2f} ms, each at its nearest centroid (excess {excess:.1e}) | map_ids: "
+        f"sentinel {v} -> {n_clusters} | remap of phase RT's data "
+        f"({len(rt_data.user_sequences)} users, {rt_data.num_videos} videos) {remap_s:.2f} s | "
+        f"next-semantic-id RetrievalTrainer (vocabulary {n_clusters + 1}, batch "
+        f"{cfg.batch_size}, {cfg.compute_dtype}, single mode, {cfg.sparse_update_mode} sparse "
+        f"updates): n={len(times)} p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+        f"{cfg.batch_size / p50 * 1e3:.1f} examples/s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} over {len(losses)} steps | peak memory allocated {peak_gb:.2f} GB "
+        f"(phase R's index included) | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+
+def _stub_llm(vocab):
+    """A deterministic stand-in for a served LLM (no model is downloaded):
+    it names a label on each intent axis from a hash of the prompt, some in
+    capitals (which the prompt spec snaps back onto its vocabulary), and
+    leaves an axis out now and then (which the spec fills with its
+    default)."""
+    import hashlib
+
+    from recommend_tpu_torch.llm4rec import INTENT_AXES
+
+    def llm(prompt: str) -> str:
+        h = hashlib.sha256(prompt.encode()).digest()
+        lines = []
+        for i, axis in enumerate(INTENT_AXES):
+            label = vocab[axis][h[i] % len(vocab[axis])]
+            if h[8 + i] % 7:
+                lines.append(f"{axis}: {label.upper() if h[16 + i] % 3 == 0 else label}")
+        return "\n".join(lines)
+
+    return llm
+
+
+def _payload(user: int) -> dict:
+    return {"behavior_items": [f"video {(user * 7919 + k * 104729) % 1_000_003}: a title"
+                               for k in range(6)]}
+
+
+def intent_phase(fa, totals, student, device="cuda", batch_size=512, users=L_USERS,
+                 steps=N_TRAIN, expected=None, **overrides):
+    """L, intents into ranking: a stub LLM through ``IntentPromptGenerator``
+    (the axis encoder: the student's user-tower head of each axis on a
+    per-label teacher vector) into an ``IntentCache`` (``users``
+    precomputed, then hits, synchronous misses and stale entries), whose
+    ``batch_get`` feeds ``user_intent`` to ``RankingTrainer`` steps at phase
+    TA's config (``overrides`` and ``expected`` launches for a CPU
+    rehearsal)."""
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.llm4rec import INTENT_AXES, IntentCache, IntentPromptGenerator
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _, heads, items, _, per_step = TRAIN_PHASES[0]  # TA
+    per_step = per_step if expected is None else expected
+    dim = len(INTENT_AXES) * student.cfg.head_dim
+    cfg = training_config(heads, batch_size, semantic_features=((L_INTENT, dim),), **overrides)
+
+    # the axis encoder: the student's user-tower head per (axis, label)
+    vocab = {a: tuple(f"{a}_{i}" for i in range(L_AXIS_LABELS)) for a in INTENT_AXES}
+    labels = [(a, label) for a in INTENT_AXES for label in vocab[a]]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    teacher = torch.randn(len(labels), student.cfg.teacher_dim, generator=gen, device=dev)
+    with torch.no_grad():
+        label_heads = student.user_tower(teacher)[1].float().cpu().numpy()  # [n, 4, 32]
+    head_of = {(a, label): label_heads[i, INTENT_AXES.index(a)]
+               for i, (a, label) in enumerate(labels)}
+    cache = IntentCache(
+        IntentPromptGenerator(_stub_llm(vocab), lambda a, label: head_of[(a, label)], vocab),
+        default_intent=np.zeros(dim, np.float32), capacity=2 * users, async_updates=False)
+
+    data = make_ranking_data(cfg, num_samples=4 * batch_size, max_seq_per_feature=items,
+                             seed=SEED)
+    it = ranking_batches(data, cfg, batch_size=batch_size, seed=SEED)
+    host = [next(it) for _ in range(4)]
+    batch_users = np.unique(np.concatenate([b["non_seq"]["user_id"] for b in host]))
+    # three quarters of the batches' users precomputed (one in eight of them
+    # then aged past max_age_s), the rest misses; other users fill the cache
+    rng = np.random.default_rng(SEED)
+    known = batch_users[rng.permutation(len(batch_users))[: 3 * len(batch_users) // 4]]
+    others = np.setdiff1d(rng.choice(cfg.vocab_size("user_id"), 2 * users, replace=False),
+                          batch_users)
+    pre = np.concatenate([known, others[: users - len(known)]])
+    t = time.perf_counter()
+    cache.precompute({int(u): _payload(int(u)) for u in pre})
+    pre_s = time.perf_counter() - t
+    stale = known[::8]
+    with cache._lock:  # aged by hand past max_age_s
+        for u in stale:
+            intent, ts = cache._store[int(u)]
+            cache._store[int(u)] = (intent, ts - 2 * cache.max_age_s)
+    before = dict(cache.stats)
+    t = time.perf_counter()
+    for b in host:  # a hit, a synchronous miss or a stale entry's refresh per row
+        for u in b["non_seq"]["user_id"]:
+            cache.get(int(u), _payload(int(u)))
+    get_ms = (time.perf_counter() - t) * 1e3 / (4 * batch_size)
+    got = {k: cache.stats[k] - before[k] for k in before}
+    misses = len(batch_users) - len(known)
+    assert (got["misses"], got["refreshes"], got["generated"]) == (
+        misses, len(stale), misses + len(stale)) and got["hits"] == 4 * batch_size - misses \
+        - len(stale), f"L: intent cache counts {got}"
+    t = time.perf_counter()
+    for b in host:
+        b["non_seq"][L_INTENT] = cache.batch_get([int(u) for u in b["non_seq"]["user_id"]])
+    batch_get_ms = (time.perf_counter() - t) * 1e3 / len(host)
+    for b in host:
+        x = b["non_seq"][L_INTENT]
+        assert x.shape == (batch_size, dim) and x.dtype == np.float32 and np.isfinite(x).all()
+        assert (np.abs(x).sum(1) > 0).all(), "L: a batch row took the default intent"
+
+    params = init_params(cfg, seed=SEED, device=dev)
+    trainer = RankingTrainer(cfg, device=dev)
+    state = trainer.init_state(params)
+    batches = [trainer._put_batch(b) for b in host]
+    put = batches[0]["non_seq"][L_INTENT]
+    assert put.dtype == torch.float32 and torch.equal(
+        put.cpu(), torch.from_numpy(host[0]["non_seq"][L_INTENT])), \
+        "L: the intent reached the trainer changed"
+    with torch.no_grad():  # the intent moves the logits
+        shifted = dict(batches[0], non_seq=dict(batches[0]["non_seq"]))
+        shifted["non_seq"][L_INTENT] = put + 1.0
+        a, b = trainer._logits(state.params, batches[0]), trainer._logits(state.params, shifted)
+        move = max(float((a[k].float() - b[k].float()).abs().max()) for k in cfg.tasks)
+    assert move > 1e-6, f"L: the intent does not move the logits ({move})"
+    for i in range(N_TRAIN_WARMUP):
+        state, m = trainer._train_step(state, batches[i % len(batches)])
+        assert np.isfinite(float(m["loss"])), f"L: warm-up loss {m['loss']}"
+    setup_s = time.perf_counter() - t0
+    state, times, losses, launched = time_train_steps(fa, totals, trainer, state, batches,
+                                                      per_step, steps)
+    assert all(np.isfinite(losses)), f"L: non-finite loss {losses}"
+
+    def step():
+        nonlocal state
+        state, _ = trainer._train_step(state, batches[0])
+
+    kernels, busy = _trace(step, 3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
+    del trainer, state, batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    errs = step_vs_plain(cfg, params, host[0], mixed=False, device=dev)
+    assert errs[0] <= F32_STEP_LOSS_TOL, f"L: f32 loss differs by {errs[0]}"
+    assert errs[1] <= F32_STEP_NORM_TOL, f"L: f32 grad norm differs by {errs[1]}"
+    assert errs[2] <= F32_STEP_TABLE_TOL, f"L: f32 table updates differ by {errs[2]}"
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    p50, p99 = np.percentile(times, 50), np.percentile(times, 99)
+    log(f"phase L intents: stub LLM -> IntentPromptGenerator (global_intent, {len(INTENT_AXES)} "
+        f"axes x {L_AXIS_LABELS} labels) -> the student's user-tower heads ({dim} dims) -> "
+        f"IntentCache: precompute {len(pre)} users {pre_s:.2f} s; {4 * batch_size} rows of 4 "
+        f"batches: {got['hits']} hits, {got['misses']} synchronous misses, "
+        f"{got['refreshes']} stale refreshed, {got['generated']} generated, "
+        f"{get_ms:.3f} ms/row; batch_get [{batch_size}, {dim}] {batch_get_ms:.2f} ms | "
+        f"RankingTrainer at phase TA's config + {L_INTENT} ({dim}), batch {batch_size}: "
+        f"train step n={len(times)} p50 {p50:.3f} ms p99 {p99:.3f} ms, "
+        f"{batch_size / p50 * 1e3:.1f} examples/s | loss first {losses[0]:.4f} last "
+        f"{losses[-1]:.4f} | launches {launched} | trace of 3 steps: device busy {busy:.3f} "
+        f"ms/step, idle {1 - busy / p50:.1%} of the p50, {kernels:.0f} kernels/step | peak "
+        f"memory allocated {peak_gb:.2f} GB | intent + 1 moves the logits by {move:.2e} | kernels-vs-plain step: f32 loss "
+        f"{errs[0]:.2e}, grad norm {errs[1]:.2e}, table update {errs[2]:.2e} | setup "
+        f"{setup_s:.1f} s, phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+
+# ---------------------------------------------------------------------------
+# phase N: the data layer
+# ---------------------------------------------------------------------------
+
+N_BATCHES = 20  # retrieval batches per path, compared and timed
+N_ALIAS_DRAWS = 4_000_000
+N_ALIAS_P = 1e-4  # the chi-square test's p-value must exceed this
+N_DIR = Path(__file__).resolve().parent / "build" / "phase_n"
+
+
+def data_phase(rt_data, n_batches=N_BATCHES, ml1m_users=6040, onetrans=None,
+               batch_size=None):
+    """N: the port's batcher built with g++, ``retrieval_batches`` native
+    against numpy on phase RT's data at ``retrieval_flagship``, the alias
+    sampler against its probabilities, and the two replicas at full scale
+    (the sizes are arguments so the phase rehearses on the CPU)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from scipy.stats import chisquare
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.data import native
+    from recommend_tpu_torch.data.pipeline import retrieval_batches
+    from recommend_tpu_torch.data.replica import make_ml1m_replica, make_onetrans_replica
+
+    t0 = time.perf_counter()
+    shutil.rmtree(N_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    native.load_native(N_DIR)  # a fresh build on this host
+    build_s = time.perf_counter() - t
+    shutil.rmtree(N_DIR)
+    lib = native.load_native()
+
+    cfg = get_config("retrieval_flagship", video_vocab_size=rt_data.num_videos)
+    if batch_size is not None:  # a CPU rehearsal
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    paths = {}
+    for use_native in (True, False):
+        it = retrieval_batches(rt_data, cfg, cfg.batch_size, seed=SEED, use_native=use_native)
+        t = time.perf_counter()
+        out = [next(it)]
+        first = time.perf_counter() - t
+        ms = []
+        for _ in range(n_batches - 1):
+            t = time.perf_counter()
+            out.append(next(it))
+            ms.append((time.perf_counter() - t) * 1e3)
+        paths[use_native] = (out, first, np.asarray(ms))
+    for i, (a, b) in enumerate(zip(paths[True][0], paths[False][0])):
+        assert _same_state(a, b), f"N: native batch {i} differs from the numpy path's"
+
+    t = time.perf_counter()
+    ml = make_ml1m_replica(get_config("retrieval_base", video_vocab_size=4000,
+                                      category_vocab_size=20, tag_vocab_size=512),
+                           num_users=ml1m_users, seed=SEED)
+    ml_s = time.perf_counter() - t
+    events = sum(len(s["video_id"]) for s in ml.user_sequences)
+
+    # the alias sampler's draws against its probabilities: chi-square over
+    # the items expected 5 times or more, the rest pooled
+    probs = ml.popularity.astype(np.float64) / ml.popularity.sum(dtype=np.float64)
+    draws = native.AliasSampler(lib, probs, seed=SEED).sample(N_ALIAS_DRAWS)
+    counts = np.bincount(draws, minlength=len(probs))
+    expect = probs * N_ALIAS_DRAWS
+    big = expect >= 5
+    obs, exp = counts[big], expect[big]
+    if not big.all():
+        obs, exp = np.append(obs, counts[~big].sum()), np.append(exp, expect[~big].sum())
+    p = float(chisquare(obs, exp).pvalue)
+    freq_err = float(np.abs(counts / N_ALIAS_DRAWS - probs).max())
+    assert p > N_ALIAS_P, f"N: alias sampler draws against the probabilities, p = {p}"
+
+    t = time.perf_counter()
+    parts = make_onetrans_replica(training_config(2, 512), **(onetrans or {}))
+    ot_s = time.perf_counter() - t
+    (nat, nat_first, nat_ms), (py, py_first, py_ms) = paths[True], paths[False]
+    log(f"phase N: batcher g++ {build_s:.2f} s (a fresh build on this host) | "
+        f"retrieval_batches on phase RT's data ({len(rt_data.user_sequences)} users, "
+        f"{rt_data.num_videos} videos) at retrieval_flagship (batch {cfg.batch_size}, "
+        f"max_seq_len {cfg.max_seq_len}): native == numpy for {n_batches} batches, bit for bit "
+        f"| native: first {nat_first:.2f} s, then p50 {np.median(nat_ms):.3f} ms, "
+        f"{1e3 / nat_ms.mean():.1f} batches/s; numpy: first {py_first:.2f} s, then p50 "
+        f"{np.median(py_ms):.3f} ms, {1e3 / py_ms.mean():.1f} batches/s ("
+        f"{py_ms.mean() / nat_ms.mean():.1f}x) | AliasSampler over the ML-1M replica's "
+        f"popularity ({len(probs)} items), {N_ALIAS_DRAWS} draws: chi-square p {p:.3f} "
+        f"({len(obs)} bins: the items expected 5 times or more, the rest pooled), max "
+        f"|frequency - p| {freq_err:.2e} | "
+        f"make_ml1m_replica {ml1m_users} users: {events} events, {ml.num_videos} items, "
+        f"{ml_s:.1f} s | make_onetrans_replica ({'defaults' if not onetrans else onetrans}): "
+        f"{' / '.join(str(d.num_samples) for d in parts)} train / eval impressions, "
+        f"{ot_s:.1f} s | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
 
 
 def ptxas_label(line: str) -> str:
@@ -2144,10 +2630,15 @@ def main() -> int:
     s_trunk_phase(fa, totals)
     session_phase(fa, totals)
     din_eval_phase(fa, totals, checkpoint_phase(fa, totals), examples_per_s["TA"])
-    # no band-attention kernel in R or RT
+    # no band-attention kernel in R, RT, L's distillation and semantic ids, or N
     r_out, _ = counted(fa, retrieval_phase, {}, 1)
-    counted(fa, lambda: retrieval_training_phase(r_out), {}, 1)
-    del r_out
+    rt_data, _ = counted(fa, lambda: retrieval_training_phase(r_out), {}, 1)
+    student, _ = counted(fa, distill_phase, {}, 1)
+    counted(fa, lambda: semantic_id_phase(r_out, rt_data), {}, 1)
+    del r_out  # phase R's index
+    intent_phase(fa, totals, student)
+    counted(fa, lambda: data_phase(rt_data), {}, 1)
+    del rt_data, student
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

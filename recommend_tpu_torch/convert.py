@@ -26,6 +26,11 @@ zero on both sides, so the two trainers start from one state. The retrieval
 trainer's whole state carries over: ``retrieval_opt_state_from_flax`` maps
 its optax adamw moments and count and its sparse accumulators, so a JAX run
 continues in the port.
+
+The LLM4Rec semantic-distillation student has its pair too:
+``semantic_distill_params_from_flax`` maps the JAX package's
+``SemanticDistillModel`` tree, and ``init_semantic_distill_params`` draws
+one as flax does.
 """
 
 from __future__ import annotations
@@ -38,6 +43,10 @@ import torch
 
 from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RankingConfig, RetrievalConfig
+from recommend_tpu_torch.llm4rec.semantic_distill import (
+    SemanticDistillConfig,
+    SemanticDistillModel,
+)
 from recommend_tpu_torch.models.ranking import RankingModel
 from recommend_tpu_torch.models.retrieval import RetrievalTower
 
@@ -329,6 +338,52 @@ def init_retrieval_params(cfg: RetrievalConfig, seed: int = 0,
             p.zero_()
         elif name.startswith("embed.tables.") or name in ("query_tokens", "mask_token"):
             p.normal_(0.0, 0.02, generator=gen)
+        else:  # nn.Linear [out, in]
+            _lecun_normal_(p, p.shape[1], gen)
+        out[name] = p
+    return out
+
+
+def semantic_distill_params_from_flax(tree: Mapping,
+                                      cfg: SemanticDistillConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SemanticDistillModel`` tree (nested dicts of
+    numpy arrays, with or without the ``params`` level) -> the state dict of
+    ``SemanticDistillModel(cfg)``: flax ``Dense`` kernels [in, out] become
+    ``nn.Linear`` weights [out, in]; the head stacks keep their layout."""
+    p = tree.get("params", tree)
+    sd: Dict[str, torch.Tensor] = {}
+    for tower in ("user_tower", "item_tower"):
+        for layer in ("enc1", "enc2"):
+            _linear(f"{tower}.{layer}", p[tower][layer], sd)
+        sd[f"{tower}.head_stack"] = _t(p[tower]["head_stack"])
+    for proj in ("user_distill_proj", "item_distill_proj"):
+        _linear(proj, p[proj], sd)
+    with torch.device("meta"):
+        _check_against(sd, SemanticDistillModel(cfg))
+    return sd
+
+
+@torch.no_grad()
+def init_semantic_distill_params(cfg: SemanticDistillConfig, seed: int = 0,
+                                 device=None) -> Dict[str, torch.Tensor]:
+    """A fresh state dict for ``SemanticDistillModel(cfg)``, drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed`` as flax
+    initializes the JAX model: lecun-normal kernels (the head stack's
+    fan-in is num_heads x hidden, as flax counts a 3-D kernel's leading
+    axis), zero biases. ``device`` is CUDA unless the caller names another;
+    with none named and no CUDA available it raises."""
+    device = resolve_device(device, "init_semantic_distill_params")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    with torch.device("meta"):
+        model = SemanticDistillModel(cfg)
+    out: Dict[str, torch.Tensor] = {}
+    for name, ref in model.named_parameters():
+        p = torch.empty(ref.shape, dtype=ref.dtype, device=device)
+        if name.endswith(".bias"):
+            p.zero_()
+        elif name.endswith("head_stack"):
+            _lecun_normal_(p, cfg.num_heads * cfg.hidden_dim, gen)
         else:  # nn.Linear [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         out[name] = p

@@ -101,11 +101,10 @@ def retrieval_batches(
     ``target_popularity``: [B] sampling probability (for LogQ);
     ``history_popularity``: [B, L] sampling probability of each history item.
 
-    Every batch is assembled by the numpy path below. The JAX package
-    assembles them with a native C++ batcher when ``use_native`` and the
-    library are there, and with this numpy path otherwise; its tests hold
-    the two equal, so ``use_native`` selects nothing here and the batches
-    are the same either way (the port's native batcher is ROADMAP A19).
+    With ``use_native`` every batch is assembled by the C++ batcher
+    (``data/native.py``, built with g++ at first use; a failed build
+    raises), otherwise by the numpy path below; the two give the same
+    batches, as in the JAX package.
 
     ``num_shards``/``shard_id``: per-process disjoint strides of the same
     seeded permutation, as in ``ranking_batches``."""
@@ -113,11 +112,22 @@ def retrieval_batches(
     probs = data.sampling_probs()
     rng = np.random.default_rng(seed)
     num_shards, shard_id = _resolve_shard(num_shards, shard_id)
-    epoch = 0
-    while num_epochs is None or epoch < num_epochs:
-        order = _shard_slice(rng.permutation(len(examples)), num_shards, shard_id)
-        for i in range(0, len(order) - batch_size + 1, batch_size):
-            idx = order[i : i + batch_size]
+    if use_native:
+        from recommend_tpu_torch.data.native import (
+            FlatSequences,
+            fill_retrieval_batch,
+            load_native,
+        )
+
+        lib = load_native()
+        flat = FlatSequences(data.user_sequences)
+        ex = np.asarray(examples, dtype=np.int64).reshape(-1, 2)
+
+        def assemble(idx):
+            return fill_retrieval_batch(lib, flat, ex[idx, 0], ex[idx, 1], cfg.max_seq_len,
+                                        probs)
+    else:
+        def assemble(idx):
             hist = {k: np.zeros((batch_size, cfg.max_seq_len),
                                 dtype=np.float32 if k == "duration" else np.int64)
                     for k in FEATURE_KEYS}
@@ -136,13 +146,16 @@ def retrieval_batches(
                 for k in FEATURE_KEYS:
                     tgt[k][b] = seq[k][t]
                 pop[b] = probs[seq["video_id"][t]]
-            yield {
-                "history": hist,
-                "history_valid": valid,
-                "target": tgt,
-                "target_popularity": pop,
-                "history_popularity": probs[hist["video_id"]],
-            }
+            return {"history": hist, "history_valid": valid, "target": tgt,
+                    "target_popularity": pop}
+
+    epoch = 0
+    while num_epochs is None or epoch < num_epochs:
+        order = _shard_slice(rng.permutation(len(examples)), num_shards, shard_id)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            batch = assemble(order[i : i + batch_size])
+            batch["history_popularity"] = probs[batch["history"]["video_id"]]
+            yield batch
         epoch += 1
 
 

@@ -120,14 +120,17 @@ class RankingTrainer:
         return [sf for sf in self.cfg.sequence_features if sf in batch["sequences"]]
 
     def _put_batch(self, batch: Dict) -> Dict:
-        """A numpy batch -> tensors on the trainer's device (ids int64,
-        validity bool, labels float32), with the sparse-scatter compaction
-        indices precomputed on the host when a budget is set."""
+        """A numpy batch -> tensors on the trainer's device (ids int64, the
+        semantic features' [B, dim] vectors float32, validity bool, labels
+        float32), with the sparse-scatter compaction indices precomputed on
+        the host when a budget is set."""
         cfg = self.cfg
         dev = self.device
+        semantic = {name for name, _ in cfg.semantic_features}
 
         def put(group, dtype):
-            return {k: torch.as_tensor(np.asarray(v)).to(dev, dtype)
+            return {k: torch.as_tensor(np.asarray(v)).to(
+                        dev, torch.float32 if group == "non_seq" and k in semantic else dtype)
                     for k, v in batch[group].items()}
 
         out = {"non_seq": put("non_seq", torch.long),

@@ -1,7 +1,8 @@
 """Rules the PyTorch/CUDA port keeps.
 
-- ``recommend_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor flax,
-  optax, orbax) nor anything of the JAX package ``recommend_tpu``;
+- ``recommend_tpu_torch``, ``chip_smoke.py``, ``quality_torch.py`` and the
+  profiling scripts import neither JAX (nor flax, optax, orbax) nor anything
+  of the JAX package ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
 - the engine, the initializers, the trainers and the retrieval entry points
   (``RetrievalIndex``, ``RealTimeRecommender``, ``RetrievalEvaluator``,
@@ -10,8 +11,10 @@
   ``checkpoint_dir`` writes nothing before a save;
 - what is not ported names its ROADMAP item: a ``mesh`` and the sharded
   corpus scan name A17;
-- ``chip_smoke.py`` drives phase R (retrieval serving) and phase RT (the
-  retrieval trainer, handed to R's index), whose gates no ``try`` swallows;
+- ``chip_smoke.py`` drives phase R (retrieval serving), phase RT (the
+  retrieval trainer, handed to R's index), phase L (LLM4Rec) and phase N
+  (the data layer), whose gates no ``try`` swallows; the semantic-distill
+  initializer and ``quality_torch.py`` need CUDA unless told the CPU;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -48,7 +51,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommend_tpu")
 def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
-        ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py"]
+        ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "quality_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -631,3 +634,65 @@ def test_chip_smoke_drives_phase_rt_and_no_try_swallows_its_gates():
     # every mode takes the card-vs-CPU step
     phase = ast.unparse(fns[0])
     assert "('single', 'seq2seq', 'masked')" in phase
+
+
+def test_the_new_modules_are_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("llm4rec/__init__.py", "llm4rec/prompts.py", "llm4rec/intent_cache.py",
+                 "llm4rec/semantic_distill.py", "llm4rec/semantic_ids.py", "data/replica.py",
+                 "data/datasets.py", "data/native.py"):
+        assert f"recommend_tpu_torch/{name}" in names, name
+    assert {"chip_smoke.py", "quality_torch.py"} <= names
+
+
+def test_semantic_distill_init_without_cuda_raises_unless_told_cpu(monkeypatch):
+    from recommend_tpu_torch.convert import init_semantic_distill_params
+    from recommend_tpu_torch.llm4rec import SemanticDistillConfig
+
+    cfg = SemanticDistillConfig(teacher_dim=16, hidden_dim=8, num_heads=2, head_dim=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="^init_semantic_distill_params: no CUDA device"):
+        init_semantic_distill_params(cfg)
+    params = init_semantic_distill_params(cfg, device="cpu")
+    assert all(t.device.type == "cpu" for t in params.values())
+
+
+def test_quality_run_without_cuda_exits_unless_told_cpu(monkeypatch, tmp_path, capsys):
+    import quality_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "q.json"
+    assert quality_torch.main(["--output", str(out)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err and not out.exists()
+
+
+L_N_GATES = {
+    "distill_phase": ("distill f32 step loss, card vs CPU", "distill f32 step gradients",
+                      "L: distill loss"),
+    "semantic_id_phase": ("two semantic-id builds differ", "not its nearest centroid",
+                          "L: map_ids", "non-finite next-semantic-id loss"),
+    "intent_phase": ("intent cache counts", "took the default intent",
+                     "the intent reached the trainer changed", "does not move the logits",
+                     "L: f32 loss differs", "L: f32 grad norm differs",
+                     "L: f32 table updates differ", "L: non-finite loss"),
+    "data_phase": ("differs from the numpy path's", "alias sampler draws against"),
+}
+
+
+def test_chip_smoke_drives_phases_l_and_n_and_no_try_swallows_their_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    called = {n.id for n in ast.walk(main) if isinstance(n, ast.Name)}
+    for name, gates in L_N_GATES.items():
+        assert name in called, f"main does not run {name}"
+        fn = _function(tree, name)
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], name
+        found = [ast.unparse(n.msg) for n in ast.walk(fn)
+                 if isinstance(n, ast.Assert) and n.msg is not None]
+        for gate in gates:
+            assert any(gate in g for g in found), (name, gate)
+    assert not [n for n in ast.walk(main) if isinstance(n, ast.Try)]
+    # the intent step's kernel launches go to the totals that the kernels line reports
+    assert "time_train_steps(fa, totals," in ast.unparse(_function(tree, "intent_phase"))
+    timed = ast.unparse(_function(tree, "time_train_steps"))
+    assert "counted(fa, run, per_step, steps)" in timed and "totals[k] += got[k]" in timed
