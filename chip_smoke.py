@@ -144,7 +144,22 @@ Phases, in order; any failure raises and exits non-zero:
     draws against its probabilities (chi-square), ``make_ml1m_replica`` at
     full scale and ``make_onetrans_replica`` at its defaults (seconds and
     sizes);
-14. print the kernels' JSON line, then the result line.
+14. P, the mesh paths (``parallel/``) at world size 1: one NCCL rank
+    initialized in-process (a ``file://`` store under build/, removed at
+    the end), ``make_mesh()`` (1 x 1); ``RankingTrainer(mesh=...)`` at TA's
+    config, P_STEPS steps and P_TIMED timed ones, against the trainer
+    without a mesh from the same state and batches (losses 1e-5 relative,
+    parameters 2e-5: the CPU mesh tests' tolerances; bit-equal expected and
+    printed), its B1f/B1b launches counted (3 a step) into the kernels'
+    totals; one ``RetrievalTrainer(mesh=...)`` step at ``retrieval_flagship``
+    on RT's data in float32 against the one without (the two run in turn,
+    compared on the host: loss, grad norm, parameters, accumulators), then
+    timed bf16 steps; ``RetrievalIndex(mesh=...)`` at the 10M
+    corpus against the index without: ``search`` at batch 1 and 64,
+    ``fetch_items`` and ``similar_items`` the same ids, scores 1e-5; the
+    three sharded lookups and their table gradients over NCCL against a
+    plain gather. Prints each side's p50 (host clock);
+15. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -2562,6 +2577,326 @@ def data_phase(rt_data, n_batches=N_BATCHES, ml1m_users=6040, onetrans=None,
         f"{ot_s:.1f} s | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
 
 
+# ---------------------------------------------------------------------------
+# phase P: the mesh paths at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+P_DIR = Path(__file__).resolve().parent / "build" / "phase_p"
+P_STEPS = 3  # ranking steps compared at TA's config
+P_TIMED = 10  # timed steps or searches per side after the compared ones
+P_LOSS_RTOL, P_STATE_ATOL = 1e-5, 2e-5  # the CPU mesh tests' (JAX's mesh tests')
+P_NORM_RTOL = 1e-4
+P_SCORE_ATOL = 1e-5
+P_LOOKUP_ROWS, P_LOOKUP_IDS = 1 << 20, 8192
+# a table gradient against the plain one, of its largest: the popular row
+# sums 1,024 float32 lookups in another order (the a2a path dedups first;
+# 8.5e-7 read on the H100)
+P_LOOKUP_TOL = 1e-5
+
+
+def _to_host(params):
+    return {k: v.detach().to("cpu", copy=True) for k, v in params.items()}
+
+
+def _state_diff(a, b) -> float:
+    assert set(a) == set(b), "P: the two runs' parameter names differ"
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _p_ranking(mesh, dev, fa, batch_size, items, per_step, overrides):
+    """P (a): RankingTrainer steps at TA's config without and with the mesh,
+    from one state on the same batches -> per side (losses, the state after
+    P_STEPS steps on the host, ms of P_TIMED more steps, launches)."""
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.data.pipeline import ranking_batches
+    from recommend_tpu_torch.data.synthetic import make_ranking_data
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    cfg = training_config(2, batch_size, **overrides)
+    data = make_ranking_data(cfg, num_samples=4 * batch_size, max_seq_per_feature=items,
+                             seed=SEED)
+    it = ranking_batches(data, cfg, batch_size=batch_size, seed=SEED)
+    host = [next(it) for _ in range(4)]
+    params = init_params(cfg, seed=SEED, device=dev)
+    sides = {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        trainer = RankingTrainer(cfg, device=None if m else dev, mesh=m)
+        state = trainer.init_state(params)
+        gen = torch.Generator().manual_seed(SEED)
+        batches = [trainer._put_batch(b) for b in host]
+        losses, times, snap = [], [], {}
+
+        def run():
+            nonlocal state
+            for i in range(P_STEPS + P_TIMED):
+                t = time.perf_counter()
+                state, metrics = trainer._train_step(state, batches[i % len(batches)], gen)
+                losses.append(float(metrics["loss"]))  # waits for the step
+                if i >= P_STEPS:
+                    times.append((time.perf_counter() - t) * 1e3)
+                if i == P_STEPS - 1:
+                    snap.update(_to_host(state.params))
+
+        _, got = counted(fa, run, per_step, P_STEPS + P_TIMED)
+        sides[label] = (losses[:P_STEPS], snap, np.asarray(times), got)
+        assert all(np.isfinite(losses)), f"P: non-finite ranking loss ({label}) {losses}"
+        del trainer, state, batches
+        _free(dev)
+    del params
+    _free(dev)
+    return sides
+
+
+def _p_retrieval_trainer(mesh, dev, rt_data, batch_size):
+    """P (b): RetrievalTrainer at retrieval_flagship on RT's data without
+    and with the mesh, from one state: one step in float32 (the gate: in
+    bf16 the mesh's all-gather hands the backward a contiguous gradient
+    where the plain path's is a transposed view, so the matrix products
+    take other kernels and round otherwise), then P_TIMED timed steps at
+    the preset (bf16) -> per side (loss, grad norm, the state after the
+    float32 step on the host, its accumulators, ms)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.data.pipeline import retrieval_batches
+    from recommend_tpu_torch.training.trainer import RetrievalTrainer
+
+    cfg = get_config("retrieval_flagship", video_vocab_size=rt_data.num_videos)
+    if batch_size is not None:  # a CPU rehearsal
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    it = retrieval_batches(rt_data, cfg, batch_size=cfg.batch_size, seed=SEED)
+    host = [next(it) for _ in range(4)]
+    params = init_retrieval_params(cfg, seed=SEED, device=dev)
+    sides = {}
+    for label, m in (("plain", None), ("mesh", mesh)):
+        trainer = RetrievalTrainer(c32, device=None if m else dev, mesh=m)
+        state = trainer.init_state(params)
+        state, metrics = trainer._train_step(state, trainer._put_batch(host[0]),
+                                             torch.Generator().manual_seed(SEED))
+        first = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        snap, accums = _to_host(state.params), _to_host(state.opt_state[1])
+        del trainer, state
+        _free(dev)
+        trainer = RetrievalTrainer(cfg, device=None if m else dev, mesh=m)
+        state = trainer.init_state(params)
+        gen = torch.Generator().manual_seed(SEED)
+        batches = [trainer._put_batch(b) for b in host]
+        times = []
+        for i in range(1 + P_TIMED):
+            t = time.perf_counter()
+            state, metrics = trainer._train_step(state, batches[i % len(batches)], gen)
+            assert np.isfinite(float(metrics["loss"])), f"P: non-finite retrieval loss ({label})"
+            times.append((time.perf_counter() - t) * 1e3)
+        sides[label] = (first, snap, accums, np.asarray(times[1:]))
+        del trainer, state, batches
+        _free(dev)
+    del params
+    _free(dev)
+    return cfg, sides
+
+
+def _p_index(mesh, dev, corpus):
+    """P (c): RetrievalIndex without and with the mesh at the flagship
+    corpus -> per side (search at batch 1 and R_BATCH, fetch_items,
+    similar_items, ms of the two searches, build seconds)."""
+    import numpy as np
+    import torch
+
+    from recommend_tpu_torch.config import get_config
+    from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.serving.retrieval_service import RetrievalIndex
+
+    cfg = get_config("retrieval_flagship", dropout_rate=0.0, top_k=R_TOPK,
+                     video_vocab_size=corpus)
+    params = init_retrieval_params(cfg, seed=SEED, device=dev)
+    feats, hist, valid = _corpus_and_histories(cfg, corpus, np.random.default_rng(SEED))
+    seeds = np.random.default_rng(SEED + 1).integers(0, corpus, 37)  # pads on any mesh
+    sides, interests = {}, None
+    for label, m in (("plain", None), ("mesh", mesh)):
+        index = RetrievalIndex(cfg, params, mesh=m, device=None if m else dev)
+        t = time.perf_counter()
+        index.build(feats)
+        _sync(dev)
+        build_s = time.perf_counter() - t
+        assert index.sharded == (m is not None), f"P: {label} index sharded {index.sharded}"
+        if interests is None:
+            with torch.no_grad():
+                interests = index.model({k: torch.as_tensor(v, device=dev)
+                                         for k, v in hist.items()},
+                                        torch.as_tensor(valid, device=dev))
+        out = {"search1": index.search(interests[:1], R_TOPK),
+               "search64": index.search(interests, R_TOPK),
+               "fetch": index.fetch_items(seeds).cpu(),
+               "similar": index.similar_items(seeds, 10)}
+        ms = (_ms(lambda: index.search(interests[:1], R_TOPK), P_TIMED),
+              _ms(lambda: index.search(interests, R_TOPK), P_TIMED))
+        sides[label] = (out, ms, build_s)
+        del index
+        _free(dev)
+    del params
+    _free(dev)
+    return sides
+
+
+def _p_lookups(mesh, dev):
+    """P (d): the three sharded lookups and their table gradients over the
+    process group against a plain gather -> the largest differences."""
+    import torch
+    import torch.nn.functional as F
+
+    from recommend_tpu_torch.parallel import (
+        shard_table, shard_table_column, sharded_lookup, sharded_lookup_a2a,
+        sharded_lookup_column)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    v, d = P_LOOKUP_ROWS, 128
+    table = torch.randn(v, d, generator=gen, device=dev)
+    ids = torch.randint(0, v, (P_LOOKUP_IDS,), generator=gen, device=dev)
+    ids[: P_LOOKUP_IDS // 8] = ids[0]  # a popular id, duplicated
+    ids[-1] = v  # the padding sentinel: a zero row
+    w = torch.randn(P_LOOKUP_IDS, d, generator=gen, device=dev)
+    t = table.clone().requires_grad_()
+    ok = (ids < v)[:, None]
+    ref = torch.where(ok, F.embedding(ids.clamp_max(v - 1), t), 0.0)
+    (ref_g,) = torch.autograd.grad((ref * w).sum(), [t])
+    out = {}
+    for name, place, lookup in (
+            ("sharded_lookup", shard_table, lambda b: sharded_lookup(mesh, b, ids)),
+            ("sharded_lookup_a2a", lambda m, x: shard_table(m, x, axis="data"),
+             lambda b: sharded_lookup_a2a(mesh, b, ids, axis="data")),
+            ("sharded_lookup_column", shard_table_column,
+             lambda b: sharded_lookup_column(mesh, b, ids))):
+        blk = place(mesh, table).requires_grad_()
+        rows = lookup(blk)
+        (g,) = torch.autograd.grad((rows * w).sum(), [blk])
+        fwd = float((rows - ref).detach().abs().max())
+        grad = float((g - ref_g).abs().max() / ref_g.abs().max())
+        assert fwd == 0.0, f"P: {name} differs from the plain gather by {fwd}"
+        assert grad <= P_LOOKUP_TOL, f"P: {name}'s table gradient differs by {grad}"
+        out[name] = (fwd, grad)
+    return out
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_phase(rt_data, fa, totals, device="cuda", corpus=R_CORPUS, batch_size=512,
+               items=SG_ITEMS, per_step=None, ranking_overrides=None, rt_batch=None):
+    """P: the mesh paths at world size 1 (one rank over NCCL on the card;
+    the sizes and the CPU's gloo are arguments so the phase rehearses on the
+    CPU): RankingTrainer at TA's config, RetrievalTrainer at
+    retrieval_flagship, RetrievalIndex at the flagship corpus and the three
+    sharded lookups, each against its path without a mesh."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from recommend_tpu_torch.parallel import make_mesh, multihost_init
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    per_step = TRAIN_PHASES[0][4] if per_step is None else per_step
+    shutil.rmtree(P_DIR, ignore_errors=True)
+    P_DIR.mkdir(parents=True)
+    multihost_init(init_method=f"file://{P_DIR}/store", world_size=1, rank=0,
+                   backend=None if on_card else "gloo")
+    mesh = make_mesh(device=None if on_card else "cpu")
+    backend = dist.get_backend()
+    assert backend == ("nccl" if on_card else "gloo"), f"P: the process group runs {backend}"
+    assert mesh.shape == {"data": 1, "model": 1}, f"P: mesh {mesh.shape}"
+
+    rk = _p_ranking(mesh, dev, fa, batch_size, items, per_step, ranking_overrides or {})
+    (l0, s0, t_plain, _), (l1, s1, t_mesh, got) = rk["plain"], rk["mesh"]
+    for name, n in got.items():
+        totals[name] += n
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    rk_diff = _state_diff(s0, s1)
+    rk_equal = l0 == l1 and rk_diff == 0.0
+    assert loss_err <= P_LOSS_RTOL, f"P: mesh ranking losses differ by {loss_err}"
+    assert rk_diff <= P_STATE_ATOL, f"P: mesh ranking parameters differ by {rk_diff}"
+    del rk, s0, s1
+    a_s = time.perf_counter() - t0
+
+    r_cfg, rt = _p_retrieval_trainer(mesh, dev, rt_data, rt_batch)
+    ((rl0, rn0), rs0, ra0, rt_plain), ((rl1, rn1), rs1, ra1, rt_mesh) = rt["plain"], rt["mesh"]
+    rt_loss_err = abs(rl0 - rl1) / abs(rl0)
+    rt_norm_err = abs(rn0 - rn1) / abs(rn0)
+    rt_diff = _state_diff(rs0, rs1)
+    rt_acc_err = max(float(((ra0[k] - ra1[k]).abs() / ra0[k].abs()).max()) for k in ra0)
+    rt_equal = rl0 == rl1 and rn0 == rn1 and rt_diff == 0.0 and rt_acc_err == 0.0
+    assert rt_loss_err <= P_LOSS_RTOL, f"P: mesh retrieval loss differs by {rt_loss_err}"
+    assert rt_norm_err <= P_NORM_RTOL, f"P: mesh retrieval grad norm differs by {rt_norm_err}"
+    assert rt_diff <= P_STATE_ATOL, f"P: mesh retrieval parameters differ by {rt_diff}"
+    assert rt_acc_err <= P_NORM_RTOL, f"P: mesh retrieval accumulators differ by {rt_acc_err}"
+    del rt, rs0, rs1, ra0, ra1
+    b_s = time.perf_counter() - t0 - a_s
+
+    ix = _p_index(mesh, dev, corpus)
+    (o0, (i1_plain, i64_plain), build0), (o1, (i1_mesh, i64_mesh), build1) = \
+        ix["plain"], ix["mesh"]
+    score_err = 0.0
+    for key in ("search1", "search64", "similar"):
+        (s_a, i_a), (s_b, i_b) = o0[key], o1[key]
+        assert np.array_equal(i_a, i_b), f"P: mesh index {key} ids differ"
+        score_err = max(score_err, float(np.abs(s_a - s_b).max()))
+    fetch_err = float((o0["fetch"] - o1["fetch"]).abs().max())
+    assert score_err <= P_SCORE_ATOL, f"P: mesh index scores differ by {score_err}"
+    assert fetch_err == 0.0, f"P: mesh fetch_items differs by {fetch_err}"
+    del ix, o0, o1
+    c_s = time.perf_counter() - t0 - a_s - b_s
+
+    lk = _p_lookups(mesh, dev)
+    dist.destroy_process_group()
+    shutil.rmtree(P_DIR)
+
+    def p50(x):
+        return f"{np.percentile(x, 50):.3f}"
+
+    log(f"phase P: world 1 over {backend}, mesh {mesh.shape} on {mesh.device} | "
+        f"(a) RankingTrainer at TA's config (batch {batch_size}, {items} items): "
+        f"{P_STEPS} steps, losses {[round(x, 6) for x in l1]}, largest loss difference "
+        f"{loss_err:.2e} relative, parameters {rk_diff:.2e}, bit-equal {rk_equal}; "
+        f"launches {got} ({P_STEPS + P_TIMED} steps); step p50 {p50(t_plain)} ms without, "
+        f"{p50(t_mesh)} ms with the mesh (n={P_TIMED} each), {a_s:.1f} s | "
+        f"(b) RetrievalTrainer at retrieval_flagship (video table {r_cfg.video_vocab_size}, "
+        f"batch {r_cfg.batch_size}, dropout {r_cfg.dropout_rate}): one float32 step, loss "
+        f"{rt_loss_err:.2e}, grad norm {rt_norm_err:.2e} relative, parameters {rt_diff:.2e}, "
+        f"accumulators {rt_acc_err:.2e} relative, bit-equal {rt_equal}; bf16 step p50 "
+        f"{p50(rt_plain)} ms without, {p50(rt_mesh)} ms with (n={P_TIMED}), {b_s:.1f} s | (c) RetrievalIndex at {corpus} items: search, "
+        f"fetch_items, similar_items ids equal, scores {score_err:.2e}, rows {fetch_err:.2e}; "
+        f"search p50 batch 1 {p50(i1_plain)} / {p50(i1_mesh)} ms, batch {R_BATCH} "
+        f"{p50(i64_plain)} / {p50(i64_mesh)} ms without / with (n={P_TIMED}); build "
+        f"{build0:.2f} / {build1:.2f} s, {c_s:.1f} s | (d) lookups [{P_LOOKUP_ROWS}, 128] x "
+        f"{P_LOOKUP_IDS} ids vs a plain gather (forward, gradient of its largest): "
+        + ", ".join(f"{k} {f:.1e} / {g:.1e}" for k, (f, g) in lk.items())
+        + f" | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+
 def ptxas_label(line: str) -> str:
     """``name<template ints and bools>`` of the kernel whose mangled name a
     ptxas 'Compiling entry function' line gives, e.g. band_attn_kernel<128>
@@ -2638,7 +2973,9 @@ def main() -> int:
     del r_out  # phase R's index
     intent_phase(fa, totals, student)
     counted(fa, lambda: data_phase(rt_data), {}, 1)
-    del rt_data, student
+    del student
+    mesh_phase(rt_data, fa, totals)
+    del rt_data
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

@@ -27,6 +27,13 @@ trainer's whole state carries over: ``retrieval_opt_state_from_flax`` maps
 its optax adamw moments and count and its sparse accumulators, so a JAX run
 continues in the port.
 
+A mesh run's state starts from the same full tensors: a JAX mesh-sharded
+array is whole under ``np.asarray``, so these converters take a JAX mesh
+run's trees as they take a single-device run's, and each rank keeps its
+blocks in ``init_state`` of a trainer given the ``mesh`` (which calls
+``parallel.shard_params``; optimizer state and accumulators by name, as
+``parallel.sharding.shard_state``).
+
 The LLM4Rec semantic-distillation student has its pair too:
 ``semantic_distill_params_from_flax`` maps the JAX package's
 ``SemanticDistillModel`` tree, and ``init_semantic_distill_params`` draws

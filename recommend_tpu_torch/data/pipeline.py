@@ -26,16 +26,12 @@ FEATURE_KEYS = ("video_id", "category", "tag", "duration", "timestamp")
 def _resolve_shard(
     num_shards: Optional[int], shard_id: Optional[int]
 ) -> Tuple[int, int]:
-    """Default the data shard to this process's rank in an initialized
-    ``torch.distributed`` group (one shard without one). Pass both or
-    neither: a lone num_shards would feed every process shard 0."""
+    """Default to one shard: every process of a mesh takes the same
+    batches, and a mesh trainer keeps its rank's block of each (JAX's
+    default, one shard per host process, is one shard on one host). Pass
+    both or neither: a lone num_shards would feed every process shard 0."""
     if num_shards is None and shard_id is None:
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized():
-            num_shards, shard_id = dist.get_world_size(), dist.get_rank()
-        else:
-            num_shards, shard_id = 1, 0
+        num_shards, shard_id = 1, 0
     if (num_shards is None) != (shard_id is None):
         raise ValueError("pass BOTH num_shards and shard_id, or neither")
     if not 0 <= shard_id < num_shards:

@@ -11,8 +11,8 @@
   ``save_results`` (JSON).
 
 The evaluator runs on CUDA unless given ``device="cpu"``; with no device
-given and no CUDA available it raises. The sharded corpus (``mesh``) is
-ROADMAP A17.
+given and no CUDA available it raises. ``mesh`` goes to the index, whose
+corpus it row-shards (``serving/retrieval_service.py``).
 """
 
 from __future__ import annotations
@@ -40,9 +40,11 @@ class RetrievalEvaluator:
         mesh=None,
         device=None,
     ):
-        """``params``: a state dict of ``RetrievalTower(cfg)``."""
+        """``params``: a state dict of ``RetrievalTower(cfg)``; ``mesh``: the
+        index's (the evaluator runs on the mesh's device)."""
         self.cfg = cfg
-        self.device = resolve_device(device, "RetrievalEvaluator")
+        self.device = resolve_device(device if mesh is None else mesh.device,
+                                     "RetrievalEvaluator")
         self.index = RetrievalIndex(cfg, params, mesh=mesh, device=self.device)
         self.model = self.index.model
 
@@ -74,7 +76,7 @@ class RetrievalEvaluator:
         if self.index.item_embeddings is None:
             self.index.build(data.corpus_features())
         kmax = max_k or max(ks)
-        kmax = min(kmax, self.index.item_embeddings.shape[0])
+        kmax = min(kmax, self.index.num_items)
         hits = {k: [] for k in ks if k <= kmax}
         ndcgs = {k: [] for k in ks if k <= kmax}
         rrs: List[float] = []
@@ -150,7 +152,7 @@ class RetrievalEvaluator:
         to the device once, before the warm-up, as in the JAX package: the
         timed calls do not copy it."""
         bsz = len(batch["history_valid"])
-        k = min(self.cfg.top_k, self.index.item_embeddings.shape[0])
+        k = min(self.cfg.top_k, self.index.num_items)
         feats, valid = self._put_history(batch)
 
         @torch.no_grad()

@@ -31,6 +31,7 @@ seeds its own generator from it, so a block recomputed under
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -59,6 +60,23 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+# (ranks, rank) of a batch split over a mesh's data axis while a step runs
+_BATCH_BLOCK: Optional[Tuple[int, int]] = None
+
+
+@contextmanager
+def batch_block(ranks: int, rank: int):
+    """Within it, ``_dropout`` draws each mask for the global batch of
+    ``ranks`` equal blocks and keeps block ``rank``: a step on a mesh drops
+    what one device's step on the whole batch drops."""
+    global _BATCH_BLOCK
+    prev, _BATCH_BLOCK = _BATCH_BLOCK, (ranks, rank)
+    try:
+        yield
+    finally:
+        _BATCH_BLOCK = prev
+
+
 def _dropout(x: torch.Tensor, rate: float,
              gen: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: the identity without a generator, else keep each
@@ -66,7 +84,14 @@ def _dropout(x: torch.Tensor, rate: float,
     if gen is None:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    if _BATCH_BLOCK is None:
+        u = torch.rand(x.shape, generator=gen, device=x.device)
+    else:
+        n, i = _BATCH_BLOCK
+        b = x.shape[0]
+        u = torch.rand((n * b,) + tuple(x.shape[1:]), generator=gen,
+                       device=x.device)[i * b:(i + 1) * b]
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

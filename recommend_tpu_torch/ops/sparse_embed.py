@@ -30,23 +30,49 @@ dropped, as JAX's ``mode="drop"`` scatters drop them. PyTorch's index ops
 fault on such an index (on CUDA as a device assert), so each one is sent to
 row 0 with an exactly-zero contribution: x + 0 leaves the row as it was, and
 nothing waits on the host to count the valid rows.
+
+On a mesh a table may be held as a rank's row block: inside
+``row_sharded({block: lookup})`` every ``lookup_with_dummy`` of that block
+runs ``lookup`` (``parallel.sharded_lookup``) instead of a local gather.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+# id(row block) -> its lookup, while a step on a mesh runs
+_ROW_SHARDED: Dict[int, Callable] = {}
+
+
+@contextmanager
+def row_sharded(lookups: Mapping[torch.Tensor, Callable]):
+    """Route the lookups of each given table block through its
+    ``lookup(block, ids)`` for the duration of the block."""
+    keys = [id(t) for t in lookups]
+    _ROW_SHARDED.update(zip(keys, lookups.values()))
+    try:
+        yield
+    finally:
+        for k in keys:
+            _ROW_SHARDED.pop(k, None)
+
+
+def _embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, table)
 
 
 def lookup_with_dummy(table: torch.Tensor, ids: torch.Tensor,
                       dummy: Optional[torch.Tensor]) -> torch.Tensor:
     """Embedding gather whose gradient flows into ``dummy`` (shape ids +
     [D]) instead of the table. With dummy=None this is a plain lookup."""
+    gather = _ROW_SHARDED.get(id(table), _embedding)
     if dummy is None:
-        return F.embedding(ids, table)
-    return F.embedding(ids, table.detach()) + dummy
+        return gather(table, ids)
+    return gather(table.detach(), ids) + dummy
 
 
 def make_dummy(ids_shape: Tuple[int, ...], dim: int, dtype=torch.float32,

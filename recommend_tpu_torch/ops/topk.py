@@ -18,8 +18,11 @@ last chunk's columns an ulp apart from a full one's (seen on the CPU at
 D = 4), where JAX's one product over the corpus keeps them equal.
 
 ``lax.approx_max_k`` has no PyTorch counterpart: ``recall_target`` runs the
-exact top k, which meets any recall target. The sharded scan across cards is
-ROADMAP A17.
+exact top k, which meets any recall target.
+
+``sharded_topk_retrieval`` scans a corpus row-sharded over a mesh axis: each
+rank runs the chunked scan on its own rows, and only the k winners of each
+rank cross the interconnect (an all-gather of [B, k]) before the merge.
 """
 
 from __future__ import annotations
@@ -163,10 +166,26 @@ def topk_retrieval(
     return _scan_topk(items.shape[0], score_rows, k, _chunk_rows(b * ki, chunk_rows))
 
 
-def sharded_topk_retrieval(*args, **kwargs):
-    raise NotImplementedError(
-        "sharded_topk_retrieval: the row-sharded corpus scan (ROADMAP A17) is not "
-        "ported yet")
+def sharded_topk_retrieval(
+    mesh, interests: torch.Tensor, items: torch.Tensor, k: int, axis: str = "data",
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded corpus: ``items`` is this rank's block of V/n rows
+    (``parallel.shard_table(mesh, corpus, axis)``), ``interests`` the same
+    on every rank -> (scores [B, k], global ids [B, k]), the same on every
+    rank. Each rank's exact top k, ids offset by rank * V/n, are gathered in
+    shard order and merged: ``lax.top_k``'s set and order over the whole
+    corpus, ties at the k-th place to the lowest global id."""
+    local_s, local_i = topk_retrieval(interests, items, k, chunk_rows)
+    local_i = local_i + mesh.rank(axis) * items.shape[0]
+    b, kk = local_s.shape
+    with torch.no_grad():
+        all_s = mesh.all_gather(local_s.contiguous(), axis)  # [n B, k], shard-major
+        all_i = mesh.all_gather(local_i.contiguous(), axis)
+    n = mesh.shape[axis]
+    merged_s = all_s.reshape(n, b, kk).transpose(0, 1).reshape(b, n * kk)
+    merged_i = all_i.reshape(n, b, kk).transpose(0, 1).reshape(b, n * kk)
+    return _take(merged_s, merged_i, k)
 
 
 def quantize_corpus(items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

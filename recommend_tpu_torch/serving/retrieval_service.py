@@ -20,13 +20,24 @@ session recommender, the port of the JAX package's
 
 ``search`` returns host numpy after one device-to-host wait, as the JAX
 index returns numpy. Every entry point runs on CUDA unless given
-``device="cpu"``; with no device given and no CUDA available it raises. The
-sharded corpus (``mesh``) is ROADMAP A17.
+``device="cpu"``; with no device given and no CUDA available it raises.
+
+With a ``mesh`` (``parallel.make_mesh``; every rank builds the same index
+and makes the same calls) a flat, unquantized corpus whose size divides the
+``data`` axis is row-sharded over it, placed once at ``build``: each rank
+holds V/n rows, ``search`` runs ``sharded_topk_retrieval``, ``fetch_items``
+serves the ids by the all-to-all protocol (``sharded_lookup_a2a``) and
+returns every row on every rank, and ``update_items`` writes each rank's
+own rows in place. IVF and int8 take precedence over the sharded scan
+(IVF > int8 > sharded > exact) and keep the whole corpus on every rank; a
+corpus that does not divide falls back to the replicated scan, as JAX's
+does. ``num_items`` is the corpus size whatever the layout.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -35,11 +46,14 @@ import torch
 
 from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RetrievalConfig
+from recommend_tpu_torch.parallel.embedding_sharding import shard_table, sharded_lookup_a2a
+from recommend_tpu_torch.parallel.sharding import block
 from recommend_tpu_torch.data.pipeline import FEATURE_KEYS
 from recommend_tpu_torch.models.retrieval import load_tower
 from recommend_tpu_torch.ops.ivf import build_ivf, ivf_search_interests
 from recommend_tpu_torch.ops.topk import (
     quantize_corpus,
+    sharded_topk_retrieval,
     to_host,
     topk_retrieval,
     topk_retrieval_quantized,
@@ -65,14 +79,22 @@ class RetrievalIndex:
     ):
         """``params``: a state dict of ``RetrievalTower(cfg)``, copied into
         the index's own tower; ``refresh`` is the only way new weights
-        reach it."""
+        reach it. ``mesh``: the corpus is row-sharded over its ``data``
+        axis (the index runs on the mesh's device)."""
         assert index_type in ("flat", "ivf"), index_type
         assert quantize in (None, "int8"), quantize
-        if mesh is not None:
-            raise NotImplementedError(
-                "RetrievalIndex: a sharded corpus (ROADMAP A17) is not ported yet")
+        if mesh is not None and quantize is not None:
+            # search() precedence: the int8 scan runs on the whole corpus on
+            # every rank; there is no sharded quantized scan
+            warnings.warn(
+                "RetrievalIndex: both mesh and quantize set — the int8 "
+                "quantized scan takes precedence and runs on one device; "
+                "sharded_topk_retrieval is NOT used",
+                stacklevel=2,
+            )
         self.cfg = cfg
-        self.device = resolve_device(device, "RetrievalIndex")
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device, "RetrievalIndex")
         self.model = load_tower(cfg, params, self.device)
         self.embed_batch = embed_batch
         self.index_type = index_type
@@ -85,6 +107,8 @@ class RetrievalIndex:
         self.q_items: Optional[torch.Tensor] = None
         self.q_scales: Optional[torch.Tensor] = None
         self.ivf_index = None
+        self.num_items = 0
+        self.sharded = False  # item_embeddings holds this rank's rows only
         self._last_corpus: Optional[Dict[str, np.ndarray]] = None
 
     @torch.no_grad()
@@ -115,12 +139,28 @@ class RetrievalIndex:
         # a copy that update_items folds deltas into, so refresh() re-embeds
         # the live corpus
         self._last_corpus = {k: np.array(v) for k, v in corpus_features.items()}
-        self.item_embeddings = self._embed(corpus_features)
+        self._place(self._embed(corpus_features))
         if self.quantize == "int8":
             self.q_items, self.q_scales = quantize_corpus(self.item_embeddings)
         if self.index_type == "ivf":
             self.ivf_index = build_ivf(self.item_embeddings, n_clusters=self.ivf_clusters,
                                        iters=self.ivf_iters, quantize=self.quantize)
+
+    def _place(self, corpus: torch.Tensor) -> None:
+        """Hold the [V, D] corpus: this rank's row block when it shards,
+        whole otherwise."""
+        self.num_items = corpus.shape[0]
+        n = 1 if self.mesh is None else self.mesh.shape["data"]
+        self.sharded = (self.mesh is not None and self.index_type == "flat"
+                        and self.quantize is None and self.num_items % n == 0)
+        self.item_embeddings = (shard_table(self.mesh, corpus, axis="data")
+                                if self.sharded else corpus)
+
+    def _whole(self) -> torch.Tensor:
+        """The [V, D] corpus (gathered from every rank when sharded)."""
+        if not self.sharded:
+            return self.item_embeddings
+        return self.mesh.all_gather(self.item_embeddings, "data")
 
     @torch.no_grad()
     def update_items(self, item_features: Mapping[str, np.ndarray]) -> None:
@@ -129,7 +169,9 @@ class RetrievalIndex:
         rows; a duplicated id takes its last row. Ids past the corpus end
         append, and must run contiguously from it. IVF: rows of existing ids
         are rewritten in their buckets in place (assignments are not
-        revisited; ``build()`` rebalances), and appends raise."""
+        revisited; ``build()`` rebalances), and appends raise. On a sharded
+        corpus each rank writes the rows it holds; an append gathers the
+        corpus and places it again."""
         assert self.item_embeddings is not None, "call build() first"
         ids = np.asarray(item_features["video_id"], np.int64)
         # dedup, keep the LAST occurrence
@@ -139,7 +181,16 @@ class RetrievalIndex:
             ids = ids[keep]
             item_features = {k: np.asarray(item_features[k])[keep] for k in item_features}
         rows = self._embed(item_features)
-        v = self.item_embeddings.shape[0]
+        v = self.num_items
+        if self.sharded and ids.max() < v:
+            lv = self.item_embeddings.shape[0]
+            mine = ids // lv == self.mesh.rank("data")
+            own = torch.as_tensor(np.flatnonzero(mine), device=self.device)
+            self.item_embeddings[torch.as_tensor(ids[mine] % lv, device=self.device)] = rows[own]
+            self._record(ids, item_features)
+            return
+        if self.sharded:  # an append: the corpus whole, placed again below
+            self.item_embeddings, self.sharded = self._whole(), False
         if ids.max() >= v:  # append-grow
             if self.ivf_index is not None:
                 raise ValueError(
@@ -157,12 +208,17 @@ class RetrievalIndex:
                 [self.item_embeddings, self.item_embeddings.new_zeros((grow, rows.shape[1]))])
         ids_t = torch.as_tensor(ids, device=self.device)
         self.item_embeddings[ids_t] = rows
+        self._place(self.item_embeddings)
         if self.quantize == "int8":
             self.q_items, self.q_scales = (
                 quantize_corpus(self.item_embeddings)
                 if ids.size > v // 4 else self._update_quantized(ids_t, rows))
         if self.ivf_index is not None:
             self._update_buckets(ids_t, rows)
+        self._record(ids, item_features)
+
+    def _record(self, ids: np.ndarray, item_features: Mapping[str, np.ndarray]) -> None:
+        """Fold an update into the live corpus that ``refresh`` re-embeds."""
         if self._last_corpus is not None:
             cur = len(self._last_corpus["video_id"])
             need = int(ids.max()) + 1
@@ -221,10 +277,19 @@ class RetrievalIndex:
             self.build(self._last_corpus)
 
     def fetch_items(self, item_ids) -> torch.Tensor:
-        """Embedding rows of the given item ids -> [N, D]."""
+        """Embedding rows of the given item ids -> [N, D]. On a sharded
+        corpus the ids, padded to a multiple of the ranks with the sentinel
+        V, are served by the all-to-all protocol, each rank fetching for its
+        block of them, and every rank gets all N rows."""
         assert self.item_embeddings is not None, "call build() first"
-        ids = torch.as_tensor(np.asarray(item_ids, dtype=np.int64), device=self.device)
-        return self.item_embeddings[ids]
+        ids = np.asarray(item_ids, dtype=np.int64)
+        if not self.sharded:
+            return self.item_embeddings[torch.as_tensor(ids, device=self.device)]
+        n = self.mesh.shape["data"]
+        padded = np.concatenate([ids, np.full((-len(ids)) % n, self.num_items, np.int64)])
+        mine = torch.as_tensor(block(padded, n, self.mesh.rank("data")), device=self.device)
+        rows = sharded_lookup_a2a(self.mesh, self.item_embeddings, mine, axis="data")
+        return self.mesh.all_gather(rows, "data")[: len(ids)]
 
     def similar_items(self, item_ids,
                       top_k: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -238,12 +303,14 @@ class RetrievalIndex:
         int64), host numpy."""
         assert self.item_embeddings is not None, "call build() first"
         interests = torch.as_tensor(interests, device=self.device)
-        k = min(top_k or self.cfg.top_k, self.item_embeddings.shape[0])
+        k = min(top_k or self.cfg.top_k, self.num_items)
         if self.ivf_index is not None:
             return ivf_search_interests(self.ivf_index, interests, k, nprobe=self.ivf_nprobe)
         if self.q_items is not None:
             s, i = topk_retrieval_quantized(interests, self.q_items, self.q_scales, k,
                                             self.approx_recall)
+        elif self.sharded:
+            s, i = sharded_topk_retrieval(self.mesh, interests, self.item_embeddings, k)
         else:
             s, i = topk_retrieval(interests, self.item_embeddings, k)
         return to_host(s, i)
@@ -311,7 +378,7 @@ class RealTimeRecommender:
         seen = ({it["video_id"] for it in self.sessions.get(user_id, ())}
                 if exclude_seen else set())
         # over-fetch to survive the exclusion filter
-        fetch = min(top_k + len(seen), self.index.item_embeddings.shape[0])
+        fetch = min(top_k + len(seen), self.index.num_items)
         scores, ids = self.index.search(interests, fetch)
         out = []
         for s, i in zip(scores[0], ids[0]):

@@ -25,7 +25,7 @@ and state IN PLACE.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Union
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -120,12 +120,15 @@ class RankingOptimizer:
         return {"count": 0, "dense": dstate, "sparse": sstate}
 
     @torch.no_grad()
-    def step(self, params: Tensors, grads: Tensors, state: dict) -> torch.Tensor:
+    def step(self, params: Tensors, grads: Tensors, state: dict,
+             norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One update of ``params`` and ``state`` in place; returns the
-        global norm of ``grads`` before clipping."""
+        global norm of ``grads`` before clipping (``norm`` gives it: the
+        full tensors' when ``grads`` holds a rank's blocks)."""
         cfg = self.cfg
         names = list(grads)
-        norm = global_norm(grads[n] for n in names)
+        if norm is None:
+            norm = global_norm(grads[n] for n in names)
         clip = cfg.gradient_clip_norm
         trigger = norm < clip
         count = state["count"]

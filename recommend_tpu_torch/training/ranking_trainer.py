@@ -29,8 +29,13 @@ evaluation and at the end. ``profile_dir`` traces a window of steps with
 ``torch.profiler`` (``utils/profiling.py``).
 
 The trainer runs on CUDA unless given ``device="cpu"``; with no device
-given and no CUDA available it raises. The device mesh (``mesh``) is not
-ported yet and raises when asked for.
+given and no CUDA available it raises. With a ``mesh``
+(``parallel.make_mesh``) it runs on the mesh's device, one process per
+rank, every rank given the same host batches (``training/sharded.py``): a
+step computes what one device computes on the whole batch. The loss of each
+rank is its share of the global batch's mean, the host compaction is
+skipped (the budget compacts the global rows on the device, as JAX's mesh
+path does), and ``evaluate`` scores the global batch.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RankingConfig
 from recommend_tpu_torch.convert import init_params, table_param_names
 from recommend_tpu_torch.models.losses import multi_task_bce_loss
@@ -55,11 +59,8 @@ from recommend_tpu_torch.ops.sparse_embed import (
 )
 from recommend_tpu_torch.training.checkpoint import CheckpointManager
 from recommend_tpu_torch.training.metrics import streaming_auc
-from recommend_tpu_torch.training.optimizer import (
-    global_norm,
-    make_ranking_optimizer,
-    sparse_lr_schedule,
-)
+from recommend_tpu_torch.training.optimizer import make_ranking_optimizer, sparse_lr_schedule
+from recommend_tpu_torch.training.sharded import ShardedSteps
 from recommend_tpu_torch.utils.logging import MetricLogger
 from recommend_tpu_torch.utils.profiling import StepProfiler
 
@@ -72,7 +73,7 @@ class TrainState(NamedTuple):
     step: int
 
 
-class RankingTrainer:
+class RankingTrainer(ShardedSteps):
     def __init__(
         self,
         cfg: RankingConfig,
@@ -90,23 +91,19 @@ class RankingTrainer:
         the dense parameters' norm to each step's metrics (the table RMS
         reads the whole table every step). ``max_to_keep``: checkpoints
         kept in ``checkpoint_dir``."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "RankingTrainer: multi-device training (ROADMAP A17) is not "
-                "ported yet")
-        self.device = resolve_device(device, "RankingTrainer")
         self.cfg = cfg
         if model is None:
             with torch.device("meta"):
                 model = RankingModel(cfg)
         self.model = model
+        self._init_mesh(mesh, device, "RankingTrainer", model)
         self.debug_metrics = debug_metrics
         self.ckpt = CheckpointManager(checkpoint_dir, max_to_keep) if checkpoint_dir else None
         self.tables = table_param_names(cfg)
         self._ns_tables = dict(zip(cfg.non_seq_features, self.tables))  # feature -> table
         self._item_table = self.tables[-1] if cfg.sequence_features else None
         self.optimizer = make_ranking_optimizer(cfg, total_steps, self.tables)
-        self.logger = MetricLogger(log_dir)
+        self.logger = MetricLogger(log_dir if self.lead else None, quiet=not self.lead)
         self.history: Dict[str, list] = {"train": [], "val": []}
         self._auc = streaming_auc(device=self.device)
         self._sparse_lr = sparse_lr_schedule(cfg)
@@ -123,9 +120,11 @@ class RankingTrainer:
         """A numpy batch -> tensors on the trainer's device (ids int64, the
         semantic features' [B, dim] vectors float32, validity bool, labels
         float32), with the sparse-scatter compaction indices precomputed on
-        the host when a budget is set."""
+        the host when a budget is set. On a mesh: this rank's block, not
+        compacted."""
         cfg = self.cfg
         dev = self.device
+        batch = self._shard_batch(batch)
         semantic = {name for name, _ in cfg.semantic_features}
 
         def put(group, dtype):
@@ -138,7 +137,7 @@ class RankingTrainer:
                "seq_valid": put("seq_valid", torch.bool),
                "labels": put("labels", torch.float32)}
         if (cfg.use_sparse_embedding_updates and cfg.sparse_scatter_budget > 0
-                and batch.get("sequences")):
+                and batch.get("sequences") and self.mesh is None):
             valid = np.concatenate([np.asarray(batch["seq_valid"][sf]).reshape(-1)
                                     for sf in self._seq_names_of(batch)])
             src = np.flatnonzero(valid)
@@ -158,12 +157,14 @@ class RankingTrainer:
         ``accums`` (by table parameter name) or 0.1 everywhere. With a
         ``checkpoint_dir`` that holds a checkpoint, the newest one is
         returned instead (nothing is drawn), and ``generator`` takes the
-        dropout state saved with it."""
+        dropout state saved with it. On a mesh they are given whole and
+        this rank keeps its blocks."""
         restored = self.ckpt.restore(map_location=self.device) if self.ckpt else None
         if restored is not None:
             return self._resume(restored, generator)
         if params is None:
             params = init_params(self.cfg, seed=seed, device=self.device, model=self.model)
+        params, _, accums = self._shard_init(params, None, accums)
         return TrainState(*self._build_state(params, accums, self.device), 0)
 
     def _build_state(self, params: Mapping[str, torch.Tensor], accums: Optional[Tensors],
@@ -206,16 +207,17 @@ class RankingTrainer:
                 "layout incompatible with this config (different "
                 "sparse_update_mode, vocab sizes, or optimizer layout). "
                 "Point at a fresh checkpoint_dir or retrain.") from e
-        for name, t in restored.params.items():
+        restored_params, opt_state, _ = self._shard_init(restored.params, restored.opt_state)
+        for name, t in restored_params.items():
             t.requires_grad_(params[name].requires_grad)
         if generator is not None and restored.rng_state is not None:
             generator.set_state(restored.rng_state.cpu())
-        return TrainState(restored.params, restored.opt_state, restored.step)
+        return TrainState(restored_params, opt_state, restored.step)
 
     # -- steps ---------------------------------------------------------------
     def _logits(self, params: Tensors, batch: Dict, **kwargs) -> Tensors:
         return functional_call(
-            self.model, params,
+            self.model, self._call_params(params),
             (batch["non_seq"], batch["sequences"], batch["seq_valid"]), kwargs)
 
     def _make_dummies(self, batch: Dict) -> Tensors:
@@ -233,7 +235,8 @@ class RankingTrainer:
     def _apply_sparse_updates(self, params: Tensors, accums: Tensors,
                               gdummies: Tensors, batch: Dict, lr: float) -> torch.Tensor:
         """Touched-row adagrad on every table, in place; returns the number
-        of rows the scatter budget dropped."""
+        of rows the scatter budget dropped. On a mesh the batch and the
+        gradients given are the global ones."""
         cfg = self.cfg
         dropped = torch.zeros((), dtype=torch.long, device=self.device)
         seq_names = self._seq_names_of(batch)
@@ -259,10 +262,10 @@ class RankingTrainer:
                 ids, g, dropped = compact_valid_rows(
                     ids, g, valid, cfg.sparse_scatter_budget, item_vocab)
             name = self._item_table
-            self._update(params[name], accums[name], ids, g, lr)
+            self._update_rows(self._update, name, params[name], accums[name], ids, g, lr)
         for f, name in self._ns_tables.items():
-            self._update(params[name], accums[name], batch["non_seq"][f],
-                         gdummies[f"ns_{f}"], lr)
+            self._update_rows(self._update, name, params[name], accums[name],
+                              batch["non_seq"][f], gdummies[f"ns_{f}"], lr)
         return dropped
 
     def _train_step(self, state: TrainState, batch: Dict,
@@ -274,48 +277,66 @@ class RankingTrainer:
         params = state.params
         sparse = cfg.use_sparse_embedding_updates
         dummies = self._make_dummies(batch) if sparse else {}
-        logits = self._logits(params, batch, deterministic=False,
-                              dummies=dummies or None, generator=generator)
-        loss, metrics = multi_task_bce_loss(logits, batch["labels"])
         names = [n for n, t in params.items() if t.requires_grad]
-        grads = torch.autograd.grad(
-            loss, [params[n] for n in names] + list(dummies.values()), allow_unused=True)
+        with self._on_mesh(params):
+            logits = self._logits(params, batch, deterministic=False,
+                                  dummies=dummies or None, generator=generator)
+            loss, metrics = multi_task_bce_loss(logits, batch["labels"])
+            if self.mesh is not None:  # this rank's share of the global mean
+                share = 1.0 / self.mesh.shape["data"]
+                loss = loss * share
+                metrics = {k: v * share for k, v in metrics.items()}
+            grads = torch.autograd.grad(
+                loss, [params[n] for n in names] + list(dummies.values()), allow_unused=True)
         gparams = {n: torch.zeros_like(params[n]) if g is None else g
                    for n, g in zip(names, grads)}
+        self._reduce_grads(gparams)
         if self.debug_metrics:
             self._add_debug_metrics(metrics, logits, params)
         opt_state = state.opt_state[0] if sparse else state.opt_state
-        metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state)
+        metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state,
+                                                   self._grad_norm(gparams))
         if sparse:
-            gdummies = dict(zip(dummies, grads[len(names):]))
+            gdummies = self._gather_batch(dict(zip(dummies, grads[len(names):])))
             dropped = self._apply_sparse_updates(
-                params, state.opt_state[1], gdummies, batch,
+                params, state.opt_state[1], gdummies, self._gather_batch(
+                    {k: batch[k] for k in ("non_seq", "sequences", "seq_valid")}
+                    if self.mesh is not None else batch),
                 self._sparse_lr(state.step) if callable(self._sparse_lr) else self._sparse_lr)
             if cfg.sparse_scatter_budget > 0:
                 metrics["sparse_dropped_rows"] = dropped
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = self._reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                       [k for k in metrics if k.endswith("loss")])
         return state._replace(step=state.step + 1), metrics
 
     @torch.no_grad()
     def _add_debug_metrics(self, metrics: Dict, logits: Tensors, params: Tensors) -> None:
         """Training-health scalars of the parameters the step started from:
         max |logit| per task, the item table's RMS, the dense parameters'
-        global norm."""
-        for t, l in logits.items():
+        global norm (on a mesh, of the global batch and the full tensors)."""
+        for t, l in self._gather_batch(logits).items():
             metrics[f"{t}_logit_max"] = l.abs().max()
         if self._item_table is not None:
             item = params[self._item_table]
-            metrics["item_table_rms"] = item.float().square().mean().sqrt()
+            if self._item_table in self.sharded:
+                sq = self.mesh.all_reduce_(item.float().square().sum(), "model")
+                metrics["item_table_rms"] = (sq / (item.numel() * self.mesh.shape["model"])).sqrt()
+            else:
+                metrics["item_table_rms"] = item.float().square().mean().sqrt()
         sparse = self.cfg.use_sparse_embedding_updates
-        metrics["dense_param_norm"] = global_norm(
-            t for n, t in params.items() if not (sparse and n in self.tables))
+        metrics["dense_param_norm"] = self._grad_norm(
+            {n: t for n, t in params.items() if not (sparse and n in self.tables)})
 
     @torch.no_grad()
     def _eval_step(self, params: Tensors, batch: Dict, auc_states):
-        logits = self._logits(params, batch)
-        _, metrics = multi_task_bce_loss(logits, batch["labels"])
+        """Loss and AUC of a ``_put_batch`` batch (on a mesh, of the global
+        batch: the logits and labels are gathered)."""
+        with self._on_mesh(params):
+            logits = self._gather_batch(self._logits(params, batch))
+        labels = self._gather_batch(batch["labels"])
+        _, metrics = multi_task_bce_loss(logits, labels)
         _, update, _ = self._auc
-        new_states = {t: update(auc_states[t], torch.sigmoid(logits[t]), batch["labels"][t])
+        new_states = {t: update(auc_states[t], torch.sigmoid(logits[t]), labels[t])
                       for t in logits}
         return metrics, new_states
 
@@ -410,10 +431,7 @@ class RankingTrainer:
         return state
 
     def _save(self, state: TrainState, generator: torch.Generator) -> None:
-        if self.ckpt is not None:
-            self.ckpt.save(state.step, state.params, state.opt_state,
-                           config_dict=self.cfg.to_dict(), history=self.history,
-                           rng_state=generator.get_state())
+        self._save_ckpt(state.step, state.params, state.opt_state, generator.get_state())
 
 
 def _check_layout(fresh, restored, where: str = "state") -> None:

@@ -41,8 +41,14 @@ trainer's converted state (``convert.retrieval_params_from_flax``,
 ``convert.retrieval_opt_state_from_flax``), so a JAX run continues here.
 
 The trainer runs on CUDA unless given ``device="cpu"``; with no device given
-and no CUDA available it raises. The device mesh (``mesh``) is not ported
-yet and raises when asked for.
+and no CUDA available it raises. With a ``mesh`` (``parallel.make_mesh``) it
+runs on the mesh's device, one process per rank, every rank given the same
+host batches (``training/sharded.py``): a step computes what one device
+computes on the whole batch. The in-batch losses score each rank's rows
+against every rank's candidates (``models/losses.py``), the masked positions
+are drawn for the global batch and sliced, and the host compaction is
+skipped: the budget compacts the global rows on the device, as JAX's mesh
+path does.
 """
 
 from __future__ import annotations
@@ -55,7 +61,6 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from recommend_tpu_torch._device import resolve_device
 from recommend_tpu_torch.config import RetrievalConfig
 from recommend_tpu_torch.convert import init_retrieval_params
 from recommend_tpu_torch.models.losses import in_batch_softmax_loss, seq2seq_in_batch_loss
@@ -69,8 +74,9 @@ from recommend_tpu_torch.ops.sparse_embed import (
 )
 from recommend_tpu_torch.training.checkpoint import CheckpointManager
 from recommend_tpu_torch.training.metrics import retrieval_metric_suite
-from recommend_tpu_torch.training.optimizer import global_norm, make_retrieval_optimizer
+from recommend_tpu_torch.training.optimizer import make_retrieval_optimizer
 from recommend_tpu_torch.training.ranking_trainer import TrainState, _check_layout
+from recommend_tpu_torch.training.sharded import ShardedSteps
 from recommend_tpu_torch.utils.logging import MetricLogger
 from recommend_tpu_torch.utils.profiling import StepProfiler
 
@@ -89,7 +95,7 @@ class _Apply(nn.Module):
         return fn(self.tower, *args)
 
 
-class RetrievalTrainer:
+class RetrievalTrainer(ShardedSteps):
     def __init__(
         self,
         cfg: RetrievalConfig,
@@ -105,20 +111,16 @@ class RetrievalTrainer:
         ``single``, ``seq2seq`` or ``masked``; ``max_to_keep``: checkpoints
         kept in ``checkpoint_dir``."""
         assert mode in ("single", "seq2seq", "masked"), mode
-        if mesh is not None:
-            raise NotImplementedError(
-                "RetrievalTrainer: multi-device training (ROADMAP A17) is not "
-                "ported yet")
-        self.device = resolve_device(device, "RetrievalTrainer")
         self.cfg = cfg
         self.mode = mode
         with torch.device("meta"):
             self.model = RetrievalTower(cfg)
+        self._init_mesh(mesh, device, "RetrievalTrainer", self.model)
         self._apply = _Apply(self.model)
         self.tables = {n: f"embed.tables.{n}.weight" for n in SPARSE_TABLES}
         self.optimizer = make_retrieval_optimizer(cfg, total_steps, self.tables.values())
         self.ckpt = CheckpointManager(checkpoint_dir, max_to_keep) if checkpoint_dir else None
-        self.logger = MetricLogger(log_dir)
+        self.logger = MetricLogger(log_dir if self.lead else None, quiet=not self.lead)
         self.history: Dict[str, list] = {"train": [], "val": []}
         # the raw (uncompressed) tail: the seq2seq and masked positions
         last = cfg.schedule_specs()[-1]
@@ -147,9 +149,11 @@ class RetrievalTrainer:
         """A numpy batch -> tensors on the trainer's device (ids int64,
         ``duration`` and popularities float32, validity bool), with the
         sparse-scatter compaction precomputed on the host when a budget is
-        set: the valid rows of ``[history ; target]``, in that layout."""
+        set: the valid rows of ``[history ; target]``, in that layout. On a
+        mesh: this rank's block, not compacted."""
         cfg = self.cfg
         dev = self.device
+        batch = self._shard_batch(batch)
 
         def put(x, dtype):
             return torch.as_tensor(np.asarray(x)).to(dev, dtype)
@@ -163,7 +167,8 @@ class RetrievalTrainer:
         for k in ("target_popularity", "history_popularity"):
             if k in batch:
                 out[k] = put(batch[k], torch.float32)
-        if cfg.use_sparse_embedding_updates and cfg.sparse_scatter_budget > 0:
+        if (cfg.use_sparse_embedding_updates and cfg.sparse_scatter_budget > 0
+                and self.mesh is None):
             hv = np.asarray(batch["history_valid"])
             b = hv.shape[0]
             tv = self._target_valid(hv)
@@ -189,12 +194,15 @@ class RetrievalTrainer:
         or zero moments at step 0; with sparse updates, ``accums`` (by table
         parameter name) or 0.1 everywhere ([V] rowwise, [V, D] exact). With
         a ``checkpoint_dir`` that holds a checkpoint, the newest one is
-        returned instead, and ``generator`` takes the state saved with it."""
+        returned instead, and ``generator`` takes the state saved with it.
+        On a mesh each of them is given whole and this rank keeps its
+        blocks."""
         restored = self.ckpt.restore(map_location=self.device) if self.ckpt else None
         if restored is not None:
             return self._resume(restored, generator)
         if params is None:
             params = init_retrieval_params(self.cfg, seed=seed, device=self.device)
+        params, opt_state, accums = self._shard_init(params, opt_state, accums)
         state, opt = self._build_state(params, opt_state, accums, self.device)
         return TrainState(state, opt, 0 if opt_state is None else int(opt_state["count"]))
 
@@ -241,11 +249,12 @@ class RetrievalTrainer:
                 "layout incompatible with this config (different "
                 "sparse_update_mode, vocab sizes, or optimizer layout). "
                 "Point at a fresh checkpoint_dir or retrain.") from e
-        for name, t in restored.params.items():
+        restored_params, opt_state, _ = self._shard_init(restored.params, restored.opt_state)
+        for name, t in restored_params.items():
             t.requires_grad_(params[name].requires_grad)
         if generator is not None and restored.rng_state is not None:
             generator.set_state(restored.rng_state.cpu())
-        return TrainState(restored.params, restored.opt_state, restored.step)
+        return TrainState(restored_params, opt_state, restored.step)
 
     # -- losses --------------------------------------------------------------
     def _next_feats(self, batch: Dict) -> Tensors:
@@ -281,7 +290,7 @@ class RetrievalTrainer:
             interests = tower(hist, hv, deterministic=False, dummies=dh, generator=generator)
             pop = batch["target_popularity"] if logq else None
             return in_batch_softmax_loss(interests, target_emb, pop,
-                                         label_smoothing=cfg.label_smoothing)
+                                         label_smoothing=cfg.label_smoothing, mesh=self.mesh)
         r, l = self.tail_r, cfg.max_seq_len
         if self.mode == "seq2seq":
             t = cfg.num_compressed_tokens
@@ -299,7 +308,7 @@ class RetrievalTrainer:
             pos_valid = torch.gather(hv, 1, pos)
             pop = torch.gather(batch["history_popularity"], 1, pos) if logq else None
         return seq2seq_in_batch_loss(interests, target_emb, pop, pos_valid,
-                                     label_smoothing=cfg.label_smoothing)
+                                     label_smoothing=cfg.label_smoothing, mesh=self.mesh)
 
     def _make_dummies(self, batch: Dict) -> Dict[str, Tensors]:
         """Zeros that receive the per-lookup gradients of the id tables:
@@ -318,7 +327,8 @@ class RetrievalTrainer:
                               gdummies: Dict[str, Tensors], batch: Dict,
                               pos: Optional[torch.Tensor]) -> torch.Tensor:
         """Touched-row adagrad on the three id tables, in place; returns the
-        number of rows the scatter budget dropped."""
+        number of rows the scatter budget dropped. On a mesh the batch, the
+        masked positions and the gradients given are the global ones."""
         cfg = self.cfg
         d = cfg.embed_dim
         hist, hv = batch["history"], batch["history_valid"]
@@ -350,54 +360,68 @@ class RetrievalTrainer:
                 ids, g, dr = compact_valid_rows(ids, g, valid, cfg.sparse_scatter_budget, vocab)
                 dropped = torch.maximum(dropped, dr)
             table = self.tables[name]
-            self._update(params[table], accums[table], ids, g, cfg.sparse_embedding_lr)
+            self._update_rows(self._update, table, params[table], accums[table], ids, g,
+                              cfg.sparse_embedding_lr)
         return dropped
 
     def _train_step(self, state: TrainState, batch: Dict,
                     generator: Optional[torch.Generator] = None,
                     mask_positions: Optional[torch.Tensor] = None):
         """One step on a ``_put_batch`` batch; ``generator`` (CPU) draws the
-        masked positions (``mask_positions`` [B, M] gives them instead) and
-        the dropout seeds. Updates the state's tensors in place and returns
-        (the state one step on, metrics as device tensors)."""
+        masked positions (``mask_positions`` [B, M] gives them instead, for
+        the global batch on a mesh) and the dropout seeds. Updates the
+        state's tensors in place and returns (the state one step on,
+        metrics as device tensors)."""
         cfg = self.cfg
         params = state.params
         sparse = cfg.use_sparse_embedding_updates
         pos = None
         if self.mode == "masked":
-            b = batch["history_valid"].shape[0]
+            b = batch["history_valid"].shape[0] * (1 if self.mesh is None
+                                                   else self.mesh.shape["data"])
             pos = (self.draw_mask_positions(b, generator) if mask_positions is None
                    else torch.as_tensor(mask_positions).to(self.device, torch.long))
         dummies = self._make_dummies(batch) if sparse else None
-        loss, metrics = functional_call(self._apply, {f"tower.{k}": v for k, v in params.items()},
-                                        (self._loss, batch, dummies, generator, pos))
         names = [n for n, t in params.items() if t.requires_grad]
         flat = [] if dummies is None else [dummies[g][k] for g in ("hist", "tgt")
                                             for k in SPARSE_TABLES]
-        grads = torch.autograd.grad(loss, [params[n] for n in names] + flat,
-                                    allow_unused=True)
+        with self._on_mesh(params):
+            loss, metrics = functional_call(
+                self._apply, {f"tower.{k}": v for k, v in params.items()},
+                (self._loss, batch, dummies, generator,
+                 None if pos is None else self._global_rows(pos)))
+            grads = torch.autograd.grad(loss, [params[n] for n in names] + flat,
+                                        allow_unused=True)
         gparams = {n: torch.zeros_like(params[n]) if g is None else g
                    for n, g in zip(names, grads)}
-        metrics["grad_norm"] = global_norm(gparams.values())
+        self._reduce_grads(gparams)
+        metrics["grad_norm"] = self._grad_norm(gparams)
         self.optimizer.step(params, gparams, state.opt_state[0] if sparse else state.opt_state)
         if sparse:
             it = iter(grads[len(names):])
             gd = {g: {k: next(it) for k in SPARSE_TABLES} for g in ("hist", "tgt")}
-            dropped = self._apply_sparse_updates(params, state.opt_state[1], gd, batch, pos)
+            dropped = self._apply_sparse_updates(params, state.opt_state[1],
+                                                 self._gather_batch(gd),
+                                                 self._gather_batch(batch), pos)
             if cfg.sparse_scatter_budget > 0:
                 metrics["sparse_dropped_rows"] = dropped
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = self._reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                       ("loss", "in_batch_accuracy"))
         return state._replace(step=state.step + 1), metrics
 
     @torch.no_grad()
     def _eval_step(self, params: Tensors, batch: Dict) -> Dict[str, torch.Tensor]:
-        """In-batch HR@K, NDCG@K and MRR: row i's true item is column i."""
+        """In-batch HR@K, NDCG@K and MRR: row i's true item is column i (on
+        a mesh, over the global batch)."""
 
         def scores(tower):
-            interests = tower(batch["history"], batch["history_valid"])
-            return RetrievalTower.compute_scores(interests, tower.item_embeddings(batch["target"]))
+            interests = self._gather_batch(tower(batch["history"], batch["history_valid"]))
+            items = self._gather_batch(tower.item_embeddings(batch["target"]))
+            return RetrievalTower.compute_scores(interests, items)
 
-        s = functional_call(self._apply, {f"tower.{k}": v for k, v in params.items()}, (scores,))
+        with self._on_mesh(params):
+            s = functional_call(self._apply, {f"tower.{k}": v for k, v in params.items()},
+                                (scores,))
         b = s.shape[0]
         ks = tuple(k for k in (1, 5, 10, 50, 100) if k <= b)
         return retrieval_metric_suite(s, torch.arange(b, device=s.device), ks=ks)
@@ -462,7 +486,4 @@ class RetrievalTrainer:
         return state
 
     def _save(self, state: TrainState, generator: torch.Generator) -> None:
-        if self.ckpt is not None:
-            self.ckpt.save(state.step, state.params, state.opt_state,
-                           config_dict=self.cfg.to_dict(), history=self.history,
-                           rng_state=generator.get_state())
+        self._save_ckpt(state.step, state.params, state.opt_state, generator.get_state())

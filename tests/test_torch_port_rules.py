@@ -9,11 +9,12 @@
   ``RetrievalTrainer``) run on CUDA unless told otherwise, and raise without
   it; the trainer's
   ``checkpoint_dir`` writes nothing before a save;
-- what is not ported names its ROADMAP item: a ``mesh`` and the sharded
-  corpus scan name A17;
+- ``make_mesh`` runs on CUDA over NCCL unless told the CPU, and raises
+  without CUDA; ``parallel/`` is under the import rule;
 - ``chip_smoke.py`` drives phase R (retrieval serving), phase RT (the
-  retrieval trainer, handed to R's index), phase L (LLM4Rec) and phase N
-  (the data layer), whose gates no ``try`` swallows; the semantic-distill
+  retrieval trainer, handed to R's index), phase L (LLM4Rec), phase N
+  (the data layer) and phase P (the mesh paths over NCCL), whose gates no
+  ``try`` swallows; the semantic-distill
   initializer and ``quality_torch.py`` need CUDA unless told the CPU;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
@@ -51,7 +52,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "recommend_tpu")
 def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
-        ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "quality_torch.py"]
+        ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "profile_mesh.py",
+        ROOT / "quality_torch.py"]
 
 
 def _imported_modules(path: Path):
@@ -133,22 +135,17 @@ def test_trainer_without_cuda_raises_unless_told_cpu(monkeypatch, tmp_path):
     trainer = RankingTrainer(cfg, device="cpu", checkpoint_dir=str(ck))
     trainer.init_state(seed=0)
     assert ck.is_dir() and list(ck.iterdir()) == []
-    # not ported yet: raises rather than being ignored
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        RankingTrainer(cfg, device="cpu", mesh=object())
 
 
-def test_trainer_mesh_error_names_its_roadmap_item():
-    """Multi-device training is ROADMAP item A17 (``parallel/`` on
-    ``torch.distributed``); the error says so, and names no slice."""
-    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
-    from __graft_entry__ import _tiny_cfg
-    from tests.test_torch_ranking import port_config
+def test_make_mesh_without_cuda_raises_unless_told_cpu(monkeypatch):
+    from recommend_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError,
-                       match=r"^RankingTrainer: multi-device training \(ROADMAP A17\) is not "
-                             r"ported yet$"):
-        RankingTrainer(port_config(_tiny_cfg()), device="cpu", mesh=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="^make_mesh: no CUDA device"):
+        make_mesh()
+    # the CPU named: gloo, which needs a process group first
+    with pytest.raises(RuntimeError, match="^make_mesh: no process group"):
+        make_mesh(device="cpu")
 
 
 def test_cuda_entry_points_match_their_bindings():
@@ -552,20 +549,6 @@ def test_retrieval_entry_points_without_cuda_raise_unless_told_cpu(monkeypatch, 
     assert all(t.device.type == "cpu" for t in tensors)
 
 
-def test_retrieval_mesh_and_sharded_scan_name_their_roadmap_item():
-    from recommend_tpu_torch.evaluation.retrieval_eval import RetrievalEvaluator
-    from recommend_tpu_torch.ops.topk import sharded_topk_retrieval
-    from recommend_tpu_torch.serving.retrieval_service import RetrievalIndex
-
-    cfg, params = _retrieval_setup()
-    for make in (lambda: RetrievalIndex(cfg, params, mesh=object(), device="cpu"),
-                 lambda: RetrievalEvaluator(cfg, params, mesh=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match=r"\(ROADMAP A17\) is not ported yet"):
-            make()
-    with pytest.raises(NotImplementedError, match=r"^sharded_topk_retrieval: .*\(ROADMAP A17\)"):
-        sharded_topk_retrieval(None, torch.zeros(1, 4), torch.zeros(8, 4), 2)
-
-
 def _function(tree, name):
     return next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name)
 
@@ -602,16 +585,6 @@ def test_retrieval_trainer_without_cuda_raises_unless_told_cpu(monkeypatch):
     assert all(t.device.type == "cpu" for t in state.params.values())
 
 
-def test_retrieval_trainer_mesh_error_names_its_roadmap_item():
-    from recommend_tpu_torch.training.trainer import RetrievalTrainer
-
-    cfg, _ = _retrieval_setup()
-    with pytest.raises(NotImplementedError,
-                       match=r"^RetrievalTrainer: multi-device training \(ROADMAP A17\) is not "
-                             r"ported yet$"):
-        RetrievalTrainer(cfg, device="cpu", mesh=object())
-
-
 def test_chip_smoke_drives_phase_rt_and_no_try_swallows_its_gates():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     main = _function(tree, "main")
@@ -640,7 +613,9 @@ def test_the_new_modules_are_under_the_import_rule():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     for name in ("llm4rec/__init__.py", "llm4rec/prompts.py", "llm4rec/intent_cache.py",
                  "llm4rec/semantic_distill.py", "llm4rec/semantic_ids.py", "data/replica.py",
-                 "data/datasets.py", "data/native.py"):
+                 "data/datasets.py", "data/native.py", "parallel/__init__.py",
+                 "parallel/mesh.py", "parallel/sharding.py", "parallel/embedding_sharding.py",
+                 "training/sharded.py"):
         assert f"recommend_tpu_torch/{name}" in names, name
     assert {"chip_smoke.py", "quality_torch.py"} <= names
 
@@ -696,3 +671,33 @@ def test_chip_smoke_drives_phases_l_and_n_and_no_try_swallows_their_gates():
     assert "time_train_steps(fa, totals," in ast.unparse(_function(tree, "intent_phase"))
     timed = ast.unparse(_function(tree, "time_train_steps"))
     assert "counted(fa, run, per_step, steps)" in timed and "totals[k] += got[k]" in timed
+
+
+P_GATES = ("P: the process group runs", "P: mesh ranking losses differ",
+           "P: mesh ranking parameters differ", "P: non-finite ranking loss",
+           "P: mesh retrieval loss differs", "P: mesh retrieval grad norm differs",
+           "P: mesh retrieval parameters differ", "P: mesh retrieval accumulators differ",
+           "P: non-finite retrieval loss", "ids differ", "P: mesh index scores differ",
+           "P: mesh fetch_items differs", "differs from the plain gather",
+           "table gradient differs")
+
+
+def test_chip_smoke_drives_phase_p_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    assert "mesh_phase" in {n.id for n in ast.walk(main) if isinstance(n, ast.Name)}
+    fns = [_function(tree, name) for name in
+           ("mesh_phase", "_p_ranking", "_p_retrieval_trainer", "_p_index", "_p_lookups",
+            "main")]
+    for fn in fns:
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    gates = [ast.unparse(n.msg) for fn in fns for n in ast.walk(fn)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in P_GATES:
+        assert any(gate in g for g in gates), gate
+    phase = ast.unparse(fns[0])
+    # one NCCL rank on the card, no fallback to gloo there; its launches reach the totals
+    assert "backend=None if on_card else 'gloo'" in phase
+    assert "totals[name] += n" in phase
+    # the ranking side counts its launches exactly
+    assert "counted(fa, run, per_step, P_STEPS + P_TIMED)" in ast.unparse(fns[1])
