@@ -215,7 +215,9 @@ def init_params(cfg: RankingConfig, seed: int = 0, device=None,
         elif name.startswith("tokenizer.") and (
                 leaf == "sep_token" or ".embeds." in name or "item_embed" in name):
             p.normal_(0.0, 0.02, generator=gen)
-        else:  # nn.Linear [out, in] and the NS stacks [n, in, out]
+        elif p.dim() == 3:  # the NS stacks [n, in, out]: flax counts n into the fan-in
+            _lecun_normal_(p, p.shape[0] * p.shape[1], gen)
+        else:  # nn.Linear [out, in]
             _lecun_normal_(p, p.shape[1], gen)
         out[name] = p
     return out

@@ -189,6 +189,15 @@ class RankingInferenceEngine:
         t = torch.from_numpy(arr).to(self.device)
         return {name: t[i] for i, name in enumerate(names)}
 
+    def _check_ids(self, feature: str, ids, table: str) -> None:
+        """Raise unless every id of ``feature`` lies in ``table``'s rows,
+        before anything reaches the device (JAX's ``jnp.take`` reads NaN
+        there; a CUDA lookup would fault on the device)."""
+        ids = np.asarray(ids)
+        vocab = self.cfg.vocab_size(table)
+        if ids.size and (ids.min() < 0 or ids.max() >= vocab):
+            raise IndexError(f"{feature} id outside [0, {vocab}): {ids.min()}..{ids.max()}")
+
     def _sequence_arrays(
         self, rows: Sequence[Mapping[str, Sequence[int]]]
     ) -> Tuple[Tensors, Tensors]:
@@ -204,6 +213,7 @@ class RankingInferenceEngine:
                 if items:
                     ids[i, r, l - len(items):] = items
                     valid[i, r, l - len(items):] = True
+            self._check_ids(sf, ids[i], "item_id")
         return self._to_device(ids, names), self._to_device(valid, names)
 
     def preprocess_sequences(
@@ -216,6 +226,8 @@ class RankingInferenceEngine:
     def _non_seq_arrays(self, rows: List[Mapping[str, int]]) -> Tensors:
         names = self.cfg.non_seq_features
         arr = np.array([[r.get(f, 0) for r in rows] for f in names], dtype=np.int64)
+        for f, ids in zip(names, arr):
+            self._check_ids(f, ids, f)
         return self._to_device(arr, names)
 
     # -- device paths -------------------------------------------------------
@@ -440,6 +452,8 @@ class RankingInferenceEngine:
         if unknown:
             raise KeyError(f"unknown sequence feature(s) {unknown!r}")
         converted = {sf: [int(i) for i in ids] for sf, ids in new_items.items()}
+        for sf, ids in converted.items():
+            self._check_ids(sf, ids, "item_id")
         sess = self._sessions.get(session_id)
         fresh = sess is None
         if fresh:

@@ -81,10 +81,12 @@ def streaming_auc(num_thresholds: int = 512, device=None):
                         state.num_neg + (1.0 - labels).sum())
 
     def compute(state: AUCState) -> torch.Tensor:
-        tpr = state.tp / state.num_pos.clamp_min(1.0)
-        fpr = state.fp / state.num_neg.clamp_min(1.0)
+        # in float64, then back: a float32 sum of the 511 trapezoids reads
+        # 1 + 2^-23 at perfect separation
+        tpr = state.tp.double() / state.num_pos.double().clamp_min(1.0)
+        fpr = state.fp.double() / state.num_neg.double().clamp_min(1.0)
         # thresholds ascending -> fpr/tpr descending; trapezoids
-        return torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) / 2.0)
+        return torch.sum((fpr[:-1] - fpr[1:]) * (tpr[:-1] + tpr[1:]) / 2.0).float()
 
     return init, update, compute
 

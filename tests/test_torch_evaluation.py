@@ -90,6 +90,17 @@ def test_exact_and_grouped_auc_equal_jax(weighted):
             == jmetrics.grouped_auc(probs, labels, groups, weighted))
 
 
+def test_streaming_auc_reads_one_at_perfect_separation():
+    """The trapezoids are summed in float64: in float32 their sum reads a
+    unit in the last place either side of 1 at perfect separation (here
+    0.99999994 at 54 and 56 examples), and above 1 no AUC is."""
+    init, update, compute = tmetrics.streaming_auc()
+    for n in range(37, 77):
+        probs = torch.rand(n, generator=torch.Generator().manual_seed(n - 37))
+        auc = compute(update(init(), probs, (probs > 0.5).float()))
+        assert auc.dtype == torch.float32 and auc.item() == 1.0, (n, auc.item())
+
+
 def test_binary_classification_suite_matches_jax():
     probs, labels, _ = _probs_labels(1)
     probs[0], probs[1] = 0.0, 1.0  # clipped inside logloss

@@ -16,6 +16,12 @@
   (the data layer) and phase P (the mesh paths over NCCL), whose gates no
   ``try`` swallows; the semantic-distill
   initializer and ``quality_torch.py`` need CUDA unless told the CPU;
+- the entry points of ``examples_torch/`` are under the import rule, and
+  raise without CUDA unless given ``--device cpu``; ``quality_torch.py
+  --track onetrans`` exits without CUDA as its ML-1M track does; phase E of
+  ``chip_smoke.py`` drives every script as its ``main`` runs it
+  (``run(parse_args(argv))``), gates the quality track's AUCs above a
+  floor, and no ``try`` swallows its gates;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -53,7 +59,7 @@ def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
         ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "profile_mesh.py",
-        ROOT / "quality_torch.py"]
+        ROOT / "quality_torch.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -649,7 +655,7 @@ L_N_GATES = {
     "intent_phase": ("intent cache counts", "took the default intent",
                      "the intent reached the trainer changed", "does not move the logits",
                      "L: f32 loss differs", "L: f32 grad norm differs",
-                     "L: f32 table updates differ", "L: non-finite loss"),
+                     "L: f32 table gradients differ", "L: non-finite loss"),
     "data_phase": ("differs from the numpy path's", "alias sampler draws against"),
 }
 
@@ -701,3 +707,69 @@ def test_chip_smoke_drives_phase_p_and_no_try_swallows_its_gates():
     assert "totals[name] += n" in phase
     # the ranking side counts its launches exactly
     assert "counted(fa, run, per_step, P_STEPS + P_TIMED)" in ast.unparse(fns[1])
+
+
+EXAMPLES = {
+    "train_ranking": ["--model_dir", "{tmp}/model"],
+    "evaluate": ["ranking", "--checkpoint", "{tmp}/model"],
+    "train_retrieval": ["--quick-start", "--model_dir", "{tmp}/model"],
+    "serving_demo": ["--tiny"],
+    "online_learning_demo": ["--model_dir", "{tmp}/model"],
+}
+
+
+def test_the_entry_points_are_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"examples_torch/{name}.py" for name in EXAMPLES} <= names
+
+
+@pytest.mark.parametrize("script", sorted(EXAMPLES))
+def test_each_entry_point_raises_without_cuda_unless_told_cpu(monkeypatch, tmp_path, script):
+    import importlib
+
+    mod = importlib.import_module(f"examples_torch.{script}")
+    argv = [a.format(tmp=tmp_path) for a in EXAMPLES[script]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"^{script}: no CUDA device"):
+        mod.main(argv)
+    assert not (tmp_path / "model").exists()  # nothing written before the device is known
+    assert mod.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
+def test_quality_onetrans_track_without_cuda_exits_unless_told_cpu(monkeypatch, tmp_path,
+                                                                  capsys):
+    import quality_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "q.json"
+    assert quality_torch.main(["--track", "onetrans", "--output", str(out)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err and not out.exists()
+
+
+E_GATES = ("E: train_ranking --flash launched", "E: evaluate launched",
+           "E: evaluate's offline AUC differs", "the pushed engine's state differs",
+           "E: the appended items left the index", "E: training did not go on",
+           "E: quality_torch returned", "E: quality AUCs", "E_QUALITY_AUC_FLOOR", "lacks")
+
+
+def test_chip_smoke_drives_phase_e_through_each_main_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    assert "entry_points_phase" in {n.id for n in ast.walk(main) if isinstance(n, ast.Name)}
+    fns = [_function(tree, name)
+           for name in ("entry_points_phase", "_driven", "_run", "_files", "main")]
+    for fn in fns:
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    gates = [ast.unparse(n.msg) for fn in fns for n in ast.walk(fn)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in E_GATES:
+        assert any(gate in g for g in gates), gate
+    phase = ast.unparse(fns[0])
+    # each script as its main runs it: run(parse_args(argv))
+    assert "script.run(script.parse_args(argv))" in ast.unparse(fns[2])
+    for script in EXAMPLES:
+        assert f"_run({script}," in phase, script
+    assert "quality_torch.main(" in phase
+    # phase E's launches reach the kernels line's totals
+    assert "totals[k] += v" in ast.unparse(fns[1])
+    assert "fa.reset_launch_counts()" in ast.unparse(fns[1])

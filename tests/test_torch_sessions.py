@@ -341,3 +341,34 @@ def test_appends_and_a_fold_match_score_request_without_pruning(tiny):
     assert _state(port, "o")[:2] == (3, 1)
     _assert_rows_close(port.score_session("o", user, cands), port.score_request(
         user, {"click_seq": [1, 2, 3, 4, 5, 6, 7]}, cands))
+
+
+def test_an_id_outside_its_table_raises_on_the_host(tiny):
+    """JAX's lookup (``jnp.take``, mode "fill") reads NaN for an id past its
+    table, and a CUDA lookup would fault on the device: the port's engine
+    raises on the host, naming the feature, before anything runs, and a
+    rejected session update leaves the store as it was."""
+    cfg, params = tiny
+    jax_engine, port = _pair(cfg, params)
+    user, seqs, cands = _request(4)
+    bad = [dict(c) for c in cands]
+    bad[1]["price_bucket"] = cfg.vocab_size("price_bucket")
+    ref = jax_engine.score_request(user, seqs, bad)
+    assert np.isnan(ref[1]["ctr"]) and not np.isnan(ref[0]["ctr"])  # the reference
+    with pytest.raises(IndexError, match="price_bucket id outside"):
+        port.score_request(user, seqs, bad)
+    with pytest.raises(IndexError, match="click_seq id outside"):
+        port.score_request(user, dict(seqs, click_seq=[1, cfg.vocab_size("item_id")]), cands)
+    port.update_session("o", {"click_seq": [1, 2], "cart_seq": [3]})
+    before = {k: list(v) for k, v in port._sessions["o"]["ids"].items()}
+    with pytest.raises(IndexError, match="cart_seq id outside"):
+        port.update_session("o", {"click_seq": [4], "cart_seq": [cfg.vocab_size("item_id")]})
+    assert port._sessions["o"]["ids"] == before
+    with pytest.raises(IndexError, match="price_bucket id outside"):
+        port.score_session("o", user, bad)
+    with pytest.raises(IndexError, match="click_seq id outside"):
+        port.update_session("fresh", {"click_seq": [-1]})
+    assert "fresh" not in port._sessions
+    # the rejected calls left the engine serving as the JAX one does
+    _assert_rows_close(port.score_request(user, seqs, cands),
+                       jax_engine.score_request(user, seqs, cands))
