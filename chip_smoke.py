@@ -173,7 +173,11 @@ Phases, in order; any failure raises and exits non-zero:
     trainer's initial params equals the checkpoint's state bit for bit;
     the online demo trains on from its checkpoint and keeps the appended
     items indexed; each quality model's test CTR AUC is above 0.56;
-16. print the kernels' JSON line, then the result line.
+16. AB, the compression ablation: ``examples_torch/ablation_compression.py``
+    as its ``main`` runs it at ``--steps 200 --num_users 1000`` (both arms
+    at L = 64). Gates: the JAX script's keys on every printed line, 22 and
+    64 tokens, finite recalls in [0, 1], no band-attention kernel launched;
+17. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -3115,6 +3119,55 @@ def entry_points_phase(fa, totals, device="cuda", ranking_argv=(), retrieval_arg
         + f" | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
 
 
+# ---------------------------------------------------------------------------
+# phase AB: the compression ablation (examples_torch/ablation_compression.py)
+# ---------------------------------------------------------------------------
+
+AB_ARGV = ("--steps", "200", "--num_users", "1000")
+AB_ARM_KEYS = {"label", "tokens", "ms_per_step", "recall@10", "ndcg@10", "recall@50",
+               "ndcg@50", "mrr", "map"}
+AB_SUMMARY_KEYS = {"compression_token_reduction", "step_time_speedup", "recall@50_delta"}
+
+
+def ablation_phase(device="cuda", argv=()):
+    """AB: ``examples_torch/ablation_compression.py`` as its ``main`` runs it
+    on ``device`` at small flags (``argv`` adds flags, so the phase rehearses
+    on the CPU), both arms at the script's L = 64. Gates: each printed line
+    carries the JAX script's keys, the arms compress 64 items to 22 tokens
+    and leave 64, and every recall is finite and in [0, 1]. The retrieval
+    tower reaches no band-attention kernel: main runs the phase under
+    ``counted(fa, ..., {}, 1)``."""
+    import contextlib
+    import io
+
+    from examples_torch import ablation_compression
+
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = ablation_compression.main([*AB_ARGV, "--device", device, *argv])
+    assert rc == 0, f"AB: ablation_compression returned {rc}"
+    lines = [json.loads(line) for line in printed.getvalue().splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 3, f"AB: {len(lines)} JSON lines, not 3"
+    comp, raw, summary = lines
+    for arm in (comp, raw):
+        assert set(arm) == AB_ARM_KEYS, f"AB: {arm['label']} keys {sorted(arm)}"
+    assert set(summary) == AB_SUMMARY_KEYS, f"AB: summary keys {sorted(summary)}"
+    assert (comp["label"], comp["tokens"], raw["label"], raw["tokens"]) == (
+        "compressed", 22, "raw", 64), f"AB: arms {comp['tokens']} / {raw['tokens']} tokens"
+    recalls = {f"{arm['label']} {k}": arm[k] for arm in (comp, raw)
+               for k in ("recall@10", "recall@50")}
+    bad = {k: v for k, v in recalls.items() if not 0.0 <= v <= 1.0}
+    assert not bad, f"AB: recalls {bad} not finite in [0, 1]"
+    log("phase AB: ablation_compression " + " ".join([*AB_ARGV, *argv]) + ": " + " | ".join(
+        f"{arm['label']} {arm['tokens']} tokens {arm['ms_per_step']} ms a step, recall@10 "
+        f"{arm['recall@10']}, @50 {arm['recall@50']}" for arm in (comp, raw))
+        + f" | speedup {summary['step_time_speedup']}, recall@50 delta "
+        f"{summary['recall@50_delta']} | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+    return lines
+
+
 def ptxas_label(line: str) -> str:
     """``name<template ints and bools>`` of the kernel whose mangled name a
     ptxas 'Compiling entry function' line gives, e.g. band_attn_kernel<128>
@@ -3195,6 +3248,7 @@ def main() -> int:
     mesh_phase(rt_data, fa, totals)
     del rt_data
     entry_points_phase(fa, totals)
+    counted(fa, ablation_phase, {}, 1)  # no band-attention kernel in AB
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

@@ -1,8 +1,9 @@
 """Rules the PyTorch/CUDA port keeps.
 
-- ``recommend_tpu_torch``, ``chip_smoke.py``, ``quality_torch.py`` and the
-  profiling scripts import neither JAX (nor flax, optax, orbax) nor anything
-  of the JAX package ``recommend_tpu``;
+- ``recommend_tpu_torch``, ``chip_smoke.py``, ``quality_torch.py``,
+  ``quality_torch_from_init.py`` and the profiling scripts import neither
+  JAX (nor flax, optax, orbax) nor anything of the JAX package
+  ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
 - the engine, the initializers, the trainers and the retrieval entry points
   (``RetrievalIndex``, ``RealTimeRecommender``, ``RetrievalEvaluator``,
@@ -21,7 +22,9 @@
   --track onetrans`` exits without CUDA as its ML-1M track does; phase E of
   ``chip_smoke.py`` drives every script as its ``main`` runs it
   (``run(parse_args(argv))``), gates the quality track's AUCs above a
-  floor, and no ``try`` swallows its gates;
+  floor, and no ``try`` swallows its gates; phase AB drives
+  ``examples_torch/ablation_compression.py`` through its ``main``, counts
+  no kernel launch in it, and no ``try`` swallows its gates;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -59,7 +62,8 @@ def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
         ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "profile_mesh.py",
-        ROOT / "quality_torch.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
+        ROOT / "quality_torch.py", ROOT / "quality_torch_from_init.py"] + sorted(
+            (ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -716,19 +720,21 @@ EXAMPLES = {
     "serving_demo": ["--tiny"],
     "online_learning_demo": ["--model_dir", "{tmp}/model"],
 }
+# phase E drives EXAMPLES; phase AB the ablation
+ENTRY_POINTS = {**EXAMPLES, "ablation_compression": ["--steps", "3", "--output", "{tmp}/model"]}
 
 
 def test_the_entry_points_are_under_the_import_rule():
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
-    assert {f"examples_torch/{name}.py" for name in EXAMPLES} <= names
+    assert {f"examples_torch/{name}.py" for name in ENTRY_POINTS} <= names
 
 
-@pytest.mark.parametrize("script", sorted(EXAMPLES))
+@pytest.mark.parametrize("script", sorted(ENTRY_POINTS))
 def test_each_entry_point_raises_without_cuda_unless_told_cpu(monkeypatch, tmp_path, script):
     import importlib
 
     mod = importlib.import_module(f"examples_torch.{script}")
-    argv = [a.format(tmp=tmp_path) for a in EXAMPLES[script]]
+    argv = [a.format(tmp=tmp_path) for a in ENTRY_POINTS[script]]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match=f"^{script}: no CUDA device"):
         mod.main(argv)
@@ -773,3 +779,22 @@ def test_chip_smoke_drives_phase_e_through_each_main_and_no_try_swallows_its_gat
     # phase E's launches reach the kernels line's totals
     assert "totals[k] += v" in ast.unparse(fns[1])
     assert "fa.reset_launch_counts()" in ast.unparse(fns[1])
+
+
+AB_GATES = ("AB: ablation_compression returned", "JSON lines, not 3", "keys", "AB: summary keys",
+            "AB: arms", "not finite in [0, 1]")
+
+
+def test_chip_smoke_drives_phase_ab_through_main_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    phase = _function(tree, "ablation_phase")
+    for fn in (phase, main):
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    # run as main runs it, with no band-attention launch allowed
+    assert "counted(fa, ablation_phase, {}, 1)" in ast.unparse(main)
+    assert "ablation_compression.main(" in ast.unparse(phase)
+    gates = [ast.unparse(n.msg) for n in ast.walk(phase)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in AB_GATES:
+        assert any(gate in g for g in gates), gate

@@ -14,7 +14,9 @@ track of ``examples/quality_parity.py`` (``run_onetrans``), on the CPU:
   final metrics when the last epoch is selected, the lifts as
   ``lift_block`` computes them. The geometry is cut to 2 layers at d 32,
   the replica to 12,000 impressions at batch 64 and the embedding widths to
-  16, so that the three models train in about 25 s here.
+  16, so that the three models train in about 25 s here;
+- (d) ``quality_torch_from_init.py`` starts OneTrans from a given initial
+  state dict (on the card: JAX's own draw).
 """
 
 import dataclasses
@@ -224,3 +226,37 @@ def test_models_and_max_steps_train_a_capped_subset(tiny_track, tmp_path):
     # no epoch ended: nothing validated, nothing selected
     assert din["train_steps"] == 3 and din["convergence_curve"] == [] and "selected" not in din
     assert r["lift_vs_baseline_pct"] == {} and r["lift_vs_baseline_pct_selected"] is None
+
+
+def test_a_run_from_a_given_initial_draw_starts_from_it(tiny_track, tmp_path, monkeypatch):
+    """``quality_torch_from_init.py`` starts OneTrans from the file's state
+    dict: the port's own seed-0 draw in the file gives ``quality_torch.py``'s
+    run, another draw another run, and a file of other names raises."""
+    import quality_torch_from_init as from_init
+    from recommend_tpu_torch.convert import init_params
+    from recommend_tpu_torch.training import ranking_trainer
+
+    # the runner swaps the trainer's initializer for the process: put it back after
+    monkeypatch.setattr(ranking_trainer, "init_params", ranking_trainer.init_params)
+    argv = ["--track", "onetrans", "--scale", "small", "--models", "onetrans", "--max-steps",
+            "3", "--device", "cpu"]
+    cfg = tget_config("ranking_base", **q.onetrans_base("small", "S", False))
+    metrics = ("ctr_auc", "cvr_auc", "ctr_logloss", "cvr_logloss")
+
+    def auc(run, out):
+        assert run([*argv, "--output", str(out)]) == 0
+        m = json.loads(out.read_text())["onetrans_replica"]["onetrans"]
+        return [m[k] for k in metrics]
+
+    def from_file(seed):
+        path = tmp_path / f"init{seed}.pt"
+        torch.save(init_params(cfg, seed=seed, device="cpu"), path)
+        return lambda a: from_init.main([str(path), *a])
+
+    ref = auc(q.main, tmp_path / "ref.json")
+    assert auc(from_file(0), tmp_path / "same.json") == ref
+    assert auc(from_file(3), tmp_path / "other.json") != ref
+    bad = tmp_path / "bad.pt"
+    torch.save({"tokenizer.sep_token": torch.zeros(32)}, bad)
+    with pytest.raises(KeyError, match="does not hold this model's parameters"):
+        from_init.main([str(bad), *argv])

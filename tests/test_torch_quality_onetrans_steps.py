@@ -10,7 +10,9 @@ loss and gradient norm and the epoch's validation AUCs agree with JAX's:
 the port follows the JAX trainer's trajectory through an epoch, so a
 learning curve that departs from the TPU's on the card is not the port's
 arithmetic at float32. (Its initial draw is another matter: the port's own
-initializers are held to flax's scales in ``test_torch_init.py``.)"""
+initializers are held to flax's scales in ``test_torch_init.py``. The same
+epochs in bf16, as the card trains, are ``test_torch_quality_onetrans_bf16.py``'s:
+``_setup`` and ``_epoch`` take ``mixed_precision``.)"""
 
 import itertools
 
@@ -37,10 +39,13 @@ S_NARROW = dict(embed_dim=64, ffn_dim=256, feature_embed_dim=32, seq_item_featur
 BOARD = dict(match=4.0, order=1.4, cross=1.8, alpha=-3.0)
 
 
-def _epoch(monkeypatch, widths, num_impressions, stream_kw, n_steps):
-    """Both trainers through one epoch from JAX's init: the (port, JAX) loss
-    and gradient norm of every step, and both validation reports."""
-    jcfg = jget_config("ranking_base", **{**jax_base("small", "S", False), **widths})
+def _setup(monkeypatch, widths, num_impressions, stream_kw, n_steps, mixed_precision=False):
+    """Both trainers at the same state, JAX's init converted: (the JAX
+    trainer and state, the port's, the epoch's batches, the validation
+    split, the JAX config). ``mixed_precision`` computes in bf16 on both
+    sides (JAX's CPU backend needs ``tests/jax_bf16_shim.py`` for it)."""
+    jcfg = jget_config("ranking_base", **{**jax_base("small", "S", False), **widths,
+                                          "use_mixed_precision": mixed_precision})
     tcfg = RankingConfig.from_dict(jcfg.to_dict())
     monkeypatch.setattr(q, "onetrans_sizes", lambda scale: dict(
         num_users=150, num_items=400, num_impressions=num_impressions, stream_kw=stream_kw,
@@ -55,6 +60,14 @@ def _epoch(monkeypatch, widths, num_impressions, stream_kw, n_steps):
     tt = RankingTrainer(tcfg, device="cpu")
     ts = tt.init_state(params_from_flax(tree, tcfg), accums=accums_from_flax(
         jax.tree_util.tree_map(np.asarray, js.opt_state[1]), tcfg))
+    return jt, js, tt, ts, batches, val, jcfg
+
+
+def _epoch(monkeypatch, widths, num_impressions, stream_kw, n_steps, mixed_precision=False):
+    """Both trainers through one epoch from JAX's init: the (port, JAX) loss
+    and gradient norm of every step, and both validation reports."""
+    jt, js, tt, ts, batches, val, jcfg = _setup(monkeypatch, widths, num_impressions,
+                                                stream_kw, n_steps, mixed_precision)
     losses, norms = [], []
     for batch in batches:
         js, jm = jt._train_step(js, jt._put_batch(batch), jax.random.key(0))
