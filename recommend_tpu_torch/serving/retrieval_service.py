@@ -31,7 +31,9 @@ returns every row on every rank, and ``update_items`` writes each rank's
 own rows in place. IVF and int8 take precedence over the sharded scan
 (IVF > int8 > sharded > exact) and keep the whole corpus on every rank; a
 corpus that does not divide falls back to the replicated scan, as JAX's
-does. ``num_items`` is the corpus size whatever the layout.
+does. ``num_items`` is the corpus size whatever the layout, derived from
+the corpus the index holds (as JAX bounds k by its held corpus), so an
+index whose tensors are assigned rather than built searches it too.
 """
 
 from __future__ import annotations
@@ -107,7 +109,6 @@ class RetrievalIndex:
         self.q_items: Optional[torch.Tensor] = None
         self.q_scales: Optional[torch.Tensor] = None
         self.ivf_index = None
-        self.num_items = 0
         self.sharded = False  # item_embeddings holds this rank's rows only
         self._last_corpus: Optional[Dict[str, np.ndarray]] = None
 
@@ -146,13 +147,22 @@ class RetrievalIndex:
             self.ivf_index = build_ivf(self.item_embeddings, n_clusters=self.ivf_clusters,
                                        iters=self.ivf_iters, quantize=self.quantize)
 
+    @property
+    def num_items(self) -> int:
+        """The corpus size: the rows of ``item_embeddings``, times the
+        ``data`` axis when they are this rank's block of a sharded corpus
+        (0 before there is a corpus)."""
+        if self.item_embeddings is None:
+            return 0
+        v = self.item_embeddings.shape[0]
+        return v * self.mesh.shape["data"] if self.sharded else v
+
     def _place(self, corpus: torch.Tensor) -> None:
         """Hold the [V, D] corpus: this rank's row block when it shards,
         whole otherwise."""
-        self.num_items = corpus.shape[0]
         n = 1 if self.mesh is None else self.mesh.shape["data"]
         self.sharded = (self.mesh is not None and self.index_type == "flat"
-                        and self.quantize is None and self.num_items % n == 0)
+                        and self.quantize is None and corpus.shape[0] % n == 0)
         self.item_embeddings = (shard_table(self.mesh, corpus, axis="data")
                                 if self.sharded else corpus)
 

@@ -1,7 +1,8 @@
 """Rules the PyTorch/CUDA port keeps.
 
 - ``recommend_tpu_torch``, ``chip_smoke.py``, ``quality_torch.py``,
-  ``quality_torch_from_init.py`` and the profiling scripts import neither
+  ``quality_torch_from_init.py``, ``graft_entry_torch.py`` and the
+  profiling scripts import neither
   JAX (nor flax, optax, orbax) nor anything of the JAX package
   ``recommend_tpu``;
 - the port's ``RankingConfig`` is the JAX package's, field for field;
@@ -25,6 +26,13 @@
   floor, and no ``try`` swallows its gates; phase AB drives
   ``examples_torch/ablation_compression.py`` through its ``main``, counts
   no kernel launch in it, and no ``try`` swallows its gates;
+- the measurement scripts of ``examples_torch/`` (``*_bench.py``) and
+  ``graft_entry_torch.py`` are under the import rule, raise without CUDA
+  unless told the CPU, and no ``except`` in them (or in
+  ``parallel/launch.py``) swallows a failure; ``graft_entry_torch``'s tiny
+  config is ``__graft_entry__``'s, field for field; phase M of
+  ``chip_smoke.py`` drives each through its ``main`` and gates it, and
+  phase R gates the int8 searches' recall against the exact scan;
 - each CUDA entry point takes exactly the arguments its ctypes binding
   passes, and a build without nvcc raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
@@ -62,8 +70,8 @@ def _port_files():
     return sorted((ROOT / "recommend_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
         ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "profile_mesh.py",
-        ROOT / "quality_torch.py", ROOT / "quality_torch_from_init.py"] + sorted(
-            (ROOT / "examples_torch").glob("*.py"))
+        ROOT / "quality_torch.py", ROOT / "quality_torch_from_init.py",
+        ROOT / "graft_entry_torch.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -720,8 +728,17 @@ EXAMPLES = {
     "serving_demo": ["--tiny"],
     "online_learning_demo": ["--model_dir", "{tmp}/model"],
 }
+# the measurement scripts, which phase M drives
+MEASUREMENT = {
+    "flagship_serving_bench": ["--output", "{tmp}/model"],
+    "flagship_bench": ["--output", "{tmp}/model"],
+    "serving_bench": ["--output", "{tmp}/model"],
+    "lookup_bench": [],
+    "scaling_bench": [],
+}
 # phase E drives EXAMPLES; phase AB the ablation
-ENTRY_POINTS = {**EXAMPLES, "ablation_compression": ["--steps", "3", "--output", "{tmp}/model"]}
+ENTRY_POINTS = {**EXAMPLES, **MEASUREMENT,
+                "ablation_compression": ["--steps", "3", "--output", "{tmp}/model"]}
 
 
 def test_the_entry_points_are_under_the_import_rule():
@@ -798,3 +815,66 @@ def test_chip_smoke_drives_phase_ab_through_main_and_no_try_swallows_its_gates()
              if isinstance(n, ast.Assert) and n.msg is not None]
     for gate in AB_GATES:
         assert any(gate in g for g in gates), gate
+
+
+def test_graft_entry_without_cuda_raises_unless_told_cpu(monkeypatch):
+    import graft_entry_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="^entry: no CUDA device"):
+        graft_entry_torch.entry()
+    with pytest.raises(RuntimeError, match="^dryrun_multichip: no CUDA device"):
+        graft_entry_torch.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="^graft_entry_torch: no CUDA device"):
+        graft_entry_torch.main([])
+
+
+@pytest.mark.parametrize("n_ns", [4, 3])
+def test_graft_tiny_config_matches_field_for_field(n_ns):
+    import __graft_entry__
+    import graft_entry_torch
+
+    assert graft_entry_torch._tiny_cfg(n_ns).to_dict() == __graft_entry__._tiny_cfg(
+        n_ns).to_dict()
+
+
+def _handlers_swallow(path: Path):
+    """Every ``except`` clause of a file: each must re-raise."""
+    tree = ast.parse(path.read_text())
+    return [h for n in ast.walk(tree) if isinstance(n, ast.Try) for h in n.handlers
+            if not any(isinstance(x, ast.Raise) for x in ast.walk(h))]
+
+
+@pytest.mark.parametrize("path", [
+    *(f"examples_torch/{name}.py" for name in sorted(MEASUREMENT)),
+    "graft_entry_torch.py", "recommend_tpu_torch/parallel/launch.py"])
+def test_no_try_in_the_measurement_scripts_swallows_a_failure(path):
+    assert not _handlers_swallow(ROOT / path), path
+
+
+M_GATES = ("M: flagship_serving phases", "M: the flat search's recall",
+           "M: int8 top-100 recall vs exact", "M: the scatter budget dropped rows",
+           "M: serving_bench keys", "M: serving_bench --device-side keys",
+           "M: entry() not finite", "launched")
+
+
+def test_chip_smoke_drives_phase_m_through_each_main_and_gates_phase_r_int8_recall():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    phase = _function(tree, "measurement_phase")
+    only = _function(tree, "_only")
+    for fn in (phase, main, only):
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    assert "measurement_phase(fa, totals)" in ast.unparse(main)
+    text = ast.unparse(phase)
+    for script in MEASUREMENT:
+        assert f"_run({script}," in text, script
+    assert "graft_entry_torch.entry(device)" in text
+    assert "graft_entry_torch.dryrun_multichip(1, device)" in text
+    gates = [ast.unparse(n.msg) for fn in (phase, only) for n in ast.walk(fn)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in M_GATES:
+        assert any(gate in g for g in gates), gate
+    r_gates = [ast.unparse(n.msg) for n in ast.walk(_function(tree, "retrieval_phase"))
+               if isinstance(n, ast.Assert) and n.msg is not None]
+    assert any("top-100 recall vs exact" in g and "R_INT8_RECALL_MIN" in g for g in r_gates)

@@ -222,3 +222,14 @@ def ranking(rank, inputs):
     if "checkpoint" in inputs:
         out["checkpoint"] = _checkpoints(inputs["checkpoint"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# graft_entry_torch.dryrun_multichip on the ranks' own process group
+# ---------------------------------------------------------------------------
+
+
+def graft_dryrun(rank, inputs):
+    import graft_entry_torch
+
+    return graft_entry_torch.dryrun_multichip(inputs["n"], device="cpu")
