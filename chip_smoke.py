@@ -13,13 +13,15 @@ Phases, in order; any failure raises and exits non-zero:
    kernel first at training phase TC's layer 0, then at the serving
    shapes, Dh 96 (ranking_base's head width), the edges of its tiling and
    every other Dh, the mh kernel first at the S-trunk gradient's shapes,
+   the blocked and segmented kernels first at phase T's OneTrans-L shapes,
    and the segmented kernel also at Dh 64 and 48 and at small shapes that
    reach each edge of its tiling), in bf16 and f32 (every bf16 call runs
    the tensor-core kernel, every f32 call the CUDA-core one), and time
    kernel, plain version and ``F.scaled_dot_product_attention`` (a
    yardstick the port never calls) with CUDA events, beside the kernel's
    bound; then the same for the five backward kernels at the training
-   shapes (B3b at the S-trunk gradient's shapes), against their plain
+   shapes (B3b at the S-trunk gradient's shapes, B2dq, B2dkv and B1b
+   first at phase T's OneTrans-L shapes), against their plain
    backward and SDPA's backward (the bf16 calls run the tensor-core passes:
    B1b, B3b and B4b both, B2dq and B2dkv one each; also at small shapes
    that reach each edge of their tiling, B1b and B3b at Dh 64, 96, 48 and
@@ -69,8 +71,12 @@ Phases, in order; any failure raises and exits non-zero:
    of steps 2->4 makes E0's state dict equal the step-4 checkpoint's bit for
    bit, its requests the step-4 engine's (1e-6) and its refreshed sessions
    its requests (bf16, 1e-2); a push with a wrong shape raises and leaves
-   E0's scores as they were. Prints checkpoint and push bytes and seconds,
-   then deletes the checkpoints;
+   E0's scores as they were; the unbroken run then takes K_QUIET_STEPS
+   timed steps, saves (asynchronously) and steps on while the save is
+   written (at least one step must run during the write). Prints checkpoint
+   and push bytes and seconds, the save's return and on-disk times and the
+   step's p50 with and without a save in flight, then deletes the
+   checkpoints;
 9. D: ``RankingTrainer(model=DINRankingModel(cfg))`` at the same config (3
    warm-up and N_DIN timed steps, finite loss, no kernel launch), one
    float32 DIN step on the card against the CPU at batch 32 (1e-5);
@@ -188,9 +194,23 @@ Phases, in order; any failure raises and exits non-zero:
     ``lookup_bench`` and ``scaling_bench --steps 10`` at one rank over
     NCCL, ``graft_entry_torch``'s ``entry()`` and ``dryrun_multichip(1)``.
     Gates: the JAX scripts' keys, the flat recall 1 and the int8 recalls at
-    least 0.97, finite losses, no band-attention kernel launched (the JAX
-    scripts' configs leave ``use_flash_attention`` off);
-18. print the kernels' JSON line, then the result line.
+    least 0.97, finite losses, at least 5 device steps between the
+    checkpoint's ``save`` and its ``wait`` (the save is asynchronous), no
+    band-attention kernel launched (the JAX scripts' configs leave
+    ``use_flash_attention`` off);
+18. T, the profiling tools (``tools_torch/``) on OneTrans-L at the paper's
+    production stream (d 384, 8 layers, 3 heads of 128, S = 1,190 + 12 NS
+    tokens, batch 512, bf16, rowwise sparse updates): ``profile_bench
+    --no-trace`` over 5 steps (ms a step, ex/s, wall-clock MFU, peak
+    memory), then a ``torch.profiler`` trace of 3 steps, ``analyze_profile``
+    of it (device and busy time, categories, band-attention entry points,
+    sources, roofline estimates) and ``mfu_accounting`` of its dump (MFU
+    inline, in the parameter-server view, on the wall clock). Gates: finite
+    losses; B2f/B2dq/B2dkv (layer 0: 601 queries over 1,202 keys) and
+    B1f/B1b (layers 1-3) launched exactly as the dispatch rule predicts a
+    step; the trace's band-attention rollup names exactly those entry
+    points; 0 < the ``ops/sparse_embed.py`` slice < the device time;
+19. print the kernels' JSON line, then the result line.
 """
 
 from __future__ import annotations
@@ -282,7 +302,8 @@ NARROW_EDGE_SHAPES = [
     dict(b=3, h=2, lq=150, ls=200, n=0, dh=48, causal=False),
     dict(b=2, h=4, lq=70, ls=130, n=0, dh=16),
 ]
-# (name, JAX kernel body it replaces, shapes on the main path). The first
+# (name, JAX kernel body it replaces, shapes on the main path). main puts
+# the shapes of phases SG and T first (SG_KERNELS, T_*_KERNELS); the first
 # shape of each kernel is the one its JSON entry reports (its heaviest).
 KERNELS = [
     ("band_attn_blocked_fwd", "recommend_tpu/ops/pallas/flash_attention.py:59", [
@@ -570,6 +591,10 @@ BWD_KERNELS = [
 ]
 # the kernels phase SG runs: checked first at its shapes
 SG_KERNELS = ("band_attn_mh_fwd", "band_attn_mh_bwd")
+# the kernels phase T's OneTrans-L step runs: checked first at its shapes
+T_BLOCKED_KERNELS = ("band_attn_blocked_fwd", "band_attn_blocked_bwd_dq",
+                     "band_attn_blocked_bwd_dkv")
+T_SEGMENTED_KERNELS = ("band_attn_segkv_fwd", "band_attn_segkv_bwd")
 # flops per (row, key) pair in the band: the dq pass recomputes s and dp and
 # forms dQ (3 products), the dkv pass s, dp, dV and dK (4); the one-kernel
 # backwards do the five products of the function (2.5x the forward's 4 Dh)
@@ -1256,6 +1281,7 @@ K_WINDOW, K_HISTORY, K_SESSIONS = 64, 48, 4  # the engines: phase A's serving sh
 K_RESUME_LOSS_TOL = 1e-6  # relative
 K_RESUME_PARAM_TOL = 1e-5  # of each parameter's largest |value|
 K_DIR = Path(__file__).resolve().parent / "build" / "phase_k"
+K_QUIET_STEPS = 10  # steps timed with no save in flight, before the one timed during it
 
 
 def timed(obj, name, seconds):
@@ -1289,7 +1315,7 @@ def checkpoint_phase(fa, totals):
     from recommend_tpu_torch.serving.param_push import (
         PushTracker, build_push, load_push, push_nbytes, save_push, table_keys)
     from recommend_tpu_torch.serving.ranking_service import RankingInferenceEngine
-    from recommend_tpu_torch.training.checkpoint import CheckpointManager
+    from recommend_tpu_torch.training.checkpoint import CheckpointManager, writing
     from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
 
     t0 = time.perf_counter()
@@ -1350,7 +1376,36 @@ def checkpoint_phase(fa, totals):
                     for k, v in state3.params.items())
     assert loss_err <= K_RESUME_LOSS_TOL, f"K: resumed loss differs by {loss_err}"
     assert param_err <= K_RESUME_PARAM_TOL, f"K: resumed params differ by {param_err}"
-    del t3, state3
+
+    # 2b. steps while a save is being written (its thread pickles under the
+    # GIL the host's dispatch needs), against steps with no save in flight
+    overlap_dir = str(K_DIR / "overlap")
+    mgr = CheckpointManager(overlap_dir, max_to_keep=1)
+    on_card = t3._put_batch(batches[0])
+
+    def step_ms():
+        nonlocal state3
+        t = time.perf_counter()
+        state3, m = t3._train_step(state3, on_card)
+        float(m["loss"])
+        return (time.perf_counter() - t) * 1e3
+
+    fa.reset_launch_counts()
+    quiet = [step_ms() for _ in range(K_QUIET_STEPS)]
+    t = time.perf_counter()
+    mgr.save(state3.step, state3.params, state3.opt_state)
+    overlap_return_s = time.perf_counter() - t
+    during = []
+    while writing(overlap_dir):
+        during.append(step_ms())
+    mgr.wait()
+    overlap_total_s = time.perf_counter() - t
+    got = dict(fa.LAUNCHES)
+    n_steps = len(quiet) + len(during)
+    assert got == {k: n_steps * per_step.get(k, 0) for k in got}, f"K: overlap launches {got}"
+    add(got)
+    assert during, "K: no step ran while the checkpoint was written"
+    del t3, state3, mgr
 
     # 3. push steps 2->4 into E0, whose sessions are open
     push = build_push(state2.params, tracker.snapshot(), step=4)
@@ -1406,8 +1461,12 @@ def checkpoint_phase(fa, totals):
     shutil.rmtree(K_DIR)
 
     log(f"phase K: OneTrans-S TA config (rowwise, bf16, dropout 0.1), batch {K_BATCH}, "
-        f"{K_ITEMS} items/sequence | checkpoint {ck_bytes} bytes, save n={len(save_s)} "
-        f"{', '.join(f'{x:.3f}' for x in save_s)} s, trainer restore "
+        f"{K_ITEMS} items/sequence | checkpoint {ck_bytes} bytes, save returns n={len(save_s)} "
+        f"{', '.join(f'{x:.3f}' for x in save_s)} s | a save between steps: returns in "
+        f"{overlap_return_s:.3f} s, on disk after {overlap_total_s:.3f} s; train "
+        f"step p50 {np.percentile(quiet, 50):.3f} ms (n={len(quiet)}) with no save in flight, "
+        f"{np.percentile(during, 50):.3f} ms (n={len(during)}, max {max(during):.3f}) while "
+        f"it is written | trainer restore "
         f"{restore_s[0]:.3f} s, engine from_checkpoint "
         f"{engine_load_s:.3f} s | resumed vs unbroken at step 4: loss {loss_err:.2e}, "
         f"params {param_err:.2e} | push 2->4: {push_bytes} bytes on disk "
@@ -3266,6 +3325,9 @@ def measurement_phase(fa, totals, device="cuda", flagship_serving_argv=(), flags
     low = {k: v for k, v in recalls.items() if k != "flat_exact" and not v >= M_RECALL_MIN}
     assert not low, f"M: int8 top-100 recall vs exact {low} < {M_RECALL_MIN}"
     assert 0.0 <= fsb["ivf"]["top100_recall_vs_exact"] <= 1.0
+    ck = fsb["checkpoint"]
+    assert ck["overlapped_device_steps_during_write"] >= 5, \
+        f"M: {ck['overlapped_device_steps_during_write']} device steps overlapped the save"
     _only("flagship_serving_bench", launches["flagship_serving_bench"], ())
 
     fb = drive("flagship_bench", lambda: _run(flagship_bench, [
@@ -3318,7 +3380,10 @@ def measurement_phase(fa, totals, device="cuda", flagship_serving_argv=(), flags
     log(f"phase M: flagship_serving_bench {' '.join(M_FLAGSHIP_SERVING_ARGV)}: flat batch 1 / "
         f"64 p50 {flat['search_ms_p50_batch1']:.3f} / {flat['search_ms_p50_batch64']:.3f} ms, "
         f"int8 {i8['search_ms_p50_batch1']:.3f} / {i8['search_ms_p50_batch64']:.3f} ms, "
-        f"recall {recalls} | flagship_bench {' '.join(M_FLAGSHIP_ARGV)}: "
+        f"recall {recalls}, checkpoint {ck['params_gb']:.3f} GiB: save returns in "
+        f"{ck['orbax_save_return_s']:.3f} s, on disk after {ck['orbax_save_total_s']:.3f} s, "
+        f"{ck['overlapped_device_steps_during_write']} device steps overlapped | "
+        f"flagship_bench {' '.join(M_FLAGSHIP_ARGV)}: "
         + ", ".join(f"{arm} {fb[arm]['ms_per_step']:.3f} ms {fb[arm]['examples_per_s']:.1f} "
                     f"ex/s" for arm in arms)
         + f" | serving_bench {' '.join(M_SERVING_ARGV)}: kv_cached_request p50 "
@@ -3332,6 +3397,138 @@ def measurement_phase(fa, totals, device="cuda", flagship_serving_argv=(), flags
         f"{dry['loss']:.4f} / {dry['sparse_loss']:.4f} | launches {launches} | seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
         + f" | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+
+
+# ---------------------------------------------------------------------------
+# phase T: OneTrans-L's step traced and analyzed by the profiling tools
+# (tools_torch/)
+# ---------------------------------------------------------------------------
+
+T_DIR = Path(__file__).resolve().parent / "build" / "phase_t"
+# OneTrans-L at the paper's production stream: 3 x 396 items + 2 [SEP]s =
+# 1,190 S tokens and 12 NS tokens, batch 512
+T_ARGV = ("--geometry", "L", "--batch", "512", "--seq", "396")
+T_TIMED_STEPS = 5
+T_TRACED_STEPS = 3
+# steps profile_bench takes before its window: one, then 10 warm steps
+T_STEPS_BEFORE = 1 + 10
+
+
+def l_kernel_shapes(cfg, seq: int, batch: int):
+    """The band-attention kernel shapes of a training step at ``cfg`` with
+    ``seq`` items per sequence, from ``pyramid_keep_lengths`` and the
+    dispatch rule (``models/ranking.py``: the kernels from 64 kept queries;
+    ``ops/flash_attention.py``: the blocked kernel, as [B·H, L, Dh], when
+    S + NS keys exceed ``FUSED_MAX_KV``, the segmented kernel otherwise), as
+    KERNELS' shape dicts: (blocked shapes, segmented shapes)."""
+    from recommend_tpu_torch.models.ranking import pyramid_keep_lengths
+    from recommend_tpu_torch.ops.flash_attention import FUSED_MAX_KV
+
+    n, h = cfg.num_ns_tokens, cfg.num_heads
+    dh = cfg.embed_dim // h
+    ls = len(cfg.sequence_features) * (seq + 1) - 1  # [SEP] between sequences
+    blocked, segmented = [], []
+    for keep in pyramid_keep_lengths(cfg, ls + n):
+        if keep >= 64 and ls + n > FUSED_MAX_KV:
+            blocked.append(dict(b=batch * h, h=1, lq=keep, ls=ls + n, n=0, dh=dh))
+        elif keep >= 64:
+            segmented.append(dict(b=batch, h=h, lq=keep, ls=ls, n=n, dh=dh))
+        ls = keep - n
+    return blocked, segmented
+
+
+def t_launches_per_step(cfg, seq: int, batch: int) -> dict:
+    blocked, segmented = l_kernel_shapes(cfg, seq, batch)
+    per_step = {"band_attn_blocked_fwd": len(blocked), "band_attn_blocked_bwd_dq": len(blocked),
+                "band_attn_blocked_bwd_dkv": len(blocked),
+                "band_attn_segkv_fwd": len(segmented), "band_attn_segkv_bwd": len(segmented)}
+    return {k: v for k, v in per_step.items() if v}
+
+
+def profile_phase(fa, totals, device="cuda", argv=T_ARGV, timed=T_TIMED_STEPS,
+                  traced=T_TRACED_STEPS):
+    """T: ``tools_torch/profile_bench.py`` as its ``main`` runs it at
+    OneTrans-L (``argv``): ``--no-trace`` over ``timed`` steps (ms a step,
+    ex/s, the wall-clock MFU, peak memory), then a ``torch.profiler`` trace
+    of ``traced`` steps; ``analyze_profile`` of the trace (per category,
+    band-attention entry point and source) and ``mfu_accounting`` of its
+    dump (MFU inline, in the parameter-server view, and on the wall clock).
+    Gates: finite losses; each run's launches exactly the dispatch rule's
+    per step (``t_launches_per_step``) times its steps; the trace holds
+    kernel events, and its band-attention rollup names exactly the entry
+    points the step launches; 0 < the ``ops/sparse_embed.py`` slice < the
+    device time. The launches go into the kernels' totals."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from tools_torch import analyze_profile, mfu_accounting, profile_bench
+
+    t0 = time.perf_counter()
+    shutil.rmtree(T_DIR, ignore_errors=True)
+    T_DIR.mkdir(parents=True)
+    args = profile_bench.parse_args([*argv, "--device", device])
+    per_step = t_launches_per_step(profile_bench.config(args.geometry, args.batch),
+                                   args.seq, args.batch)
+    secs = {}
+
+    def drive(label, steps, flags):
+        t = time.perf_counter()
+        out, got = _driven(fa, totals, f"T {label}", lambda: _run(
+            profile_bench, [*argv, *flags, "--device", device]))
+        want = {k: (T_STEPS_BEFORE + steps) * v for k, v in per_step.items()}
+        assert got == want, f"T: profile_bench {label} launched {got}, expected {want}"
+        assert math.isfinite(out["loss"]), f"T: profile_bench {label} loss {out['loss']}"
+        secs[label] = time.perf_counter() - t
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    wall = drive("--no-trace", timed, ["--no-trace", "--steps", str(timed)])
+    tr = drive("traced", traced, ["--steps", str(traced), "--out", str(T_DIR)])
+    t = time.perf_counter()
+    trace_mb = os.path.getsize(tr["trace"]) / 2**20
+    dump = str(T_DIR / "prof.json")
+    s = analyze_profile.run(analyze_profile.parse_args([
+        tr["trace"], "--steps", str(traced), "--top", "20", "--json", dump,
+        "--wall-ms", str(wall["ms_per_step"]), "--device", device]))
+    secs["analyze_profile"] = time.perf_counter() - t
+    assert s["device_events"] > 0, "T: the trace holds no kernel event"
+    named = set(s["band_attention"])
+    assert named == set(per_step), \
+        f"T: the band-attention rollup names {sorted(named)}, the step launches {sorted(per_step)}"
+    mfu = mfu_accounting.run(mfu_accounting.parse_args([
+        dump, "--geometry", args.geometry, "--batch", str(args.batch), "--seq", str(args.seq),
+        "--device", device]))
+    dev_ms, slice_ms = mfu["device_ms_per_step"], mfu["embedding_slice_ms_per_step"]
+    assert 0 < slice_ms < dev_ms, f"T: sparse_embed slice {slice_ms} ms of {dev_ms} ms a step"
+    shutil.rmtree(T_DIR)
+
+    n = s["steps"]
+    band = ", ".join(f"{k} {v['us'] / 1e3 / n:.3f} ms ({v['count'] / n:.0f} kernels)"
+                     for k, v in sorted(s["band_attention"].items()))
+    cats = ", ".join(f"{k} {v['us'] / 1e3 / n:.3f}" for k, v in
+                     sorted(s["categories"].items(), key=lambda kv: -kv[1]["us"]))
+    log(f"phase T: profile_bench {' '.join(argv)} (S {3 * args.seq + 2} + 12 NS tokens, "
+        f"{wall['flops_per_step'] / 1e12:.3f} TFLOP a step): --no-trace {timed} steps "
+        f"{wall['ms_per_step']:.3f} ms a step, {wall['examples_per_s']:.1f} ex/s, wall-clock "
+        f"MFU {wall['mfu_wall_pct']:.3f}% (profile_bench's flops), peak memory "
+        f"{wall.get('memory_peak_mb', 0) / 1024:.2f} GiB, loss {wall['loss']:.4f} | traced "
+        f"{traced} steps {tr['ms_per_step_traced']:.3f} ms a step (host-observed), trace "
+        f"{trace_mb:.1f} MB | device {dev_ms:.3f} ms a step, busy "
+        f"{s['busy_us'] / 1e3 / n:.3f} ms, idle {1 - s['busy_us'] / 1e3 / n / wall['ms_per_step']:.1%} "
+        f"of the untraced wall; by category (ms a step): {cats}; band attention: {band}; "
+        f"sparse_embed slice {slice_ms:.3f} ms ({mfu['embedding_slice_pct']:.2f}%) | MFU inline "
+        f"{mfu['mfu_inline_pct']:.3f}%, parameter-server view "
+        f"{mfu['mfu_parameter_server_view_pct']:.3f}%, wall-clock {mfu['mfu_wall_pct']:.3f}% "
+        f"(mfu_accounting's {mfu['train_flops_per_step'] / 1e12:.3f} TFLOP a step; dense bf16 "
+        f"peak {mfu['peak_flops'] / 1e12:.1f} TF/s) | launches per step {per_step} "
+        f"| seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+        + f" | phase {time.perf_counter() - t0:.1f} s [{CARD}]")
+    return s, mfu
 
 
 def ptxas_label(line: str) -> str:
@@ -3381,7 +3578,18 @@ def main() -> int:
 
     sg = s_trunk_kernel_shapes(training_config(2, SG_BATCH), SG_ITEMS, SG_BATCH)
     log(f"phase SG's model-layout shapes from pyramid_keep_lengths: {sg}")
-    fwd, bwd = ([(name, replaces, sg + shapes if name in SG_KERNELS else shapes)
+    # phase T's OneTrans-L shapes go first: each is its kernel's heaviest
+    from tools_torch.profile_bench import config as bench_config
+
+    t_args = dict(zip(T_ARGV[::2], T_ARGV[1::2]))
+    blocked, segmented = l_kernel_shapes(
+        bench_config(t_args["--geometry"], int(t_args["--batch"])), int(t_args["--seq"]),
+        int(t_args["--batch"]))
+    log(f"phase T's shapes from pyramid_keep_lengths: blocked {blocked}, segmented {segmented}")
+    first = {name: sg for name in SG_KERNELS}
+    first.update({name: blocked for name in T_BLOCKED_KERNELS})
+    first.update({name: segmented for name in T_SEGMENTED_KERNELS})
+    fwd, bwd = ([(name, replaces, first.get(name, []) + shapes)
                  for name, replaces, shapes in kernels]
                 for kernels in (KERNELS, BWD_KERNELS))
     entries = check_kernels(fa, fwd)
@@ -3416,6 +3624,7 @@ def main() -> int:
     entry_points_phase(fa, totals)
     counted(fa, ablation_phase, {}, 1)  # no band-attention kernel in AB
     measurement_phase(fa, totals)
+    profile_phase(fa, totals)
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n

@@ -33,8 +33,10 @@ EVAL_TYPES = ("offline", "ab_test", "importance", "benchmark", "all")
 def _load_retrieval(ckpt_dir: str, device):
     from recommend_tpu_torch.config import load_config
     from recommend_tpu_torch.data.synthetic import make_retrieval_data
+    from recommend_tpu_torch.training.checkpoint import wait_for_writes
     from recommend_tpu_torch.training.trainer import RetrievalTrainer
 
+    wait_for_writes(ckpt_dir)
     cfg = load_config(os.path.join(ckpt_dir, "config.json"))
     trainer = RetrievalTrainer(cfg, checkpoint_dir=ckpt_dir, device=device)
     if trainer.ckpt.latest_step() is None:

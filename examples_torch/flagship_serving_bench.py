@@ -19,9 +19,7 @@ index's corpus and its int8 copy by assignment, as the JAX script does.
 
 Where the port computes a quantity otherwise, the key stays and a ``note``
 says how: ``approx_recall`` runs the exact top k (PyTorch has no
-``lax.approx_max_k``); ``CheckpointManager.save`` is synchronous
-(``torch.save``), so the save returns when the bytes are written and no
-device step overlaps the write.
+``lax.approx_max_k``).
 
 Usage:
     python examples_torch/flagship_serving_bench.py --output flagship_serving.json
@@ -59,8 +57,6 @@ from recommend_tpu_torch.serving.retrieval_service import RetrievalIndex
 from recommend_tpu_torch.training.checkpoint import CheckpointManager
 
 APPROX_NOTE = "approx_recall=0.99 runs the exact top k (no approx_max_k in PyTorch)"
-SAVE_NOTE = ("CheckpointManager.save is synchronous (torch.save): it returns when the "
-             "checkpoint is written, so no device step overlaps the write")
 
 
 def _log(msg: str) -> None:
@@ -237,24 +233,42 @@ def phase_ivf(corpus: int, out_path: str, clusters: int = 4096, nprobe: int = 16
 
 
 def phase_checkpoint(corpus: int, out_path: str, device=None) -> dict:
-    """Flagship parameter persistence: a checkpoint save (synchronous, so
-    its return time is its write time), its restore (held equal), and the minute-level incremental push: the dense trunk and
+    """Flagship parameter persistence: the asynchronous checkpoint save,
+    timed as the JAX script times orbax's (the time ``save`` takes to return,
+    once the state is copied off the device, and the time until ``wait()``
+    has it on disk), with the JAX script's stand-in device step run between
+    the two to show that compute overlaps the write; its restore (held
+    equal); and the minute-level incremental push: the dense trunk and
     16,384 drawn video rows (one scatter-budget window), every other table
     left out, as the JAX script's push carries its touched tables only."""
     device = resolve_device(device, "flagship_serving_bench")
     cfg, params, *_ = _setup(corpus, device)
     nbytes = sum(v.numel() * v.element_size() for v in params.values())
-    report = {"corpus": corpus, "params_gb": nbytes / 2**30, "device": _device_name(device),
-              "note": SAVE_NOTE}
+    report = {"corpus": corpus, "params_gb": nbytes / 2**30, "device": _device_name(device)}
     with tempfile.TemporaryDirectory() as d:
         mngr = CheckpointManager(d, max_to_keep=1)
-        _sync(device)
+        # the JAX script's stand-in device step: tanh(x @ x), 2048 x 2048 f32
+        x = torch.ones(2048, 2048, device=device)
+
+        def step():
+            torch.tanh(x @ x)
+            _sync(device)
+
+        step()
         t0 = time.perf_counter()
         mngr.save(0, params, {})
         report["orbax_save_return_s"] = time.perf_counter() - t0
+        overlapped = 0
+        while True:  # the device keeps stepping while the thread writes
+            step()
+            overlapped += 1
+            if (overlapped >= 5
+                    and time.perf_counter() - t0 > report["orbax_save_return_s"] + 1.0):
+                break
         mngr.wait()
-        report["orbax_save_total_s"] = report["orbax_save_return_s"]
-        report["overlapped_device_steps_during_write"] = 0
+        report["orbax_save_total_s"] = time.perf_counter() - t0
+        report["overlapped_device_steps_during_write"] = overlapped
+        del x
         t0 = time.perf_counter()
         restored = mngr.restore(map_location=device)
         _sync(device)

@@ -37,7 +37,7 @@ from recommend_tpu_torch.config import RankingConfig, load_config
 from recommend_tpu_torch.convert import table_param_names
 from recommend_tpu_torch.models.ranking import RankingModel
 from recommend_tpu_torch.serving import param_push
-from recommend_tpu_torch.training.checkpoint import CheckpointManager
+from recommend_tpu_torch.training.checkpoint import CheckpointManager, wait_for_writes
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -120,6 +120,7 @@ class RankingInferenceEngine:
         """An engine on the newest checkpoint of a trainer's
         ``checkpoint_dir``, with the config of its ``config.json``."""
         device = resolve_device(device, "RankingInferenceEngine.from_checkpoint")
+        wait_for_writes(checkpoint_dir)
         cfg = load_config(f"{checkpoint_dir}/config.json")
         return cls(cfg, cls._restore_params(checkpoint_dir, device),
                    max_seq_len=max_seq_len, device=device, **kwargs)

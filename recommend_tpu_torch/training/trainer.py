@@ -483,6 +483,8 @@ class RetrievalTrainer(ShardedSteps):
                 batch = next(train_iter)
         prof.close()
         self._save(state, generator)
+        if self.ckpt is not None:
+            self.ckpt.wait()  # the saves run in a thread; the last one is on disk
         return state
 
     def _save(self, state: TrainState, generator: torch.Generator) -> None:

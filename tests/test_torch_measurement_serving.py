@@ -107,7 +107,10 @@ def test_flagship_serving_bench_reports_what_the_jax_phases_report(tmp_path, cap
     assert ck["push_rows"] == ref["push_rows"]  # the same draw of touched ids
     assert abs(ck["params_gb"] - ref["params_gb"]) < 0.01  # JAX rounds to 0.01
     assert abs(ck["push_mb"] - ref["push_mb"]) / ref["push_mb"] < 0.01
-    assert ck["overlapped_device_steps_during_write"] == 0 and "synchronous" in ck["note"]
+    # the asynchronous save: device steps ran between save() and wait()
+    assert ck["overlapped_device_steps_during_write"] >= 5
+    assert 0 < ck["orbax_save_return_s"] < ck["orbax_save_total_s"]
+    assert "note" not in ck
 
 
 @pytest.mark.parametrize("argv", [

@@ -71,7 +71,8 @@ def _port_files():
         ROOT / "chip_smoke.py", ROOT / "profile_serving.py", ROOT / "profile_training.py",
         ROOT / "profile_kernels.py", ROOT / "profile_retrieval.py", ROOT / "profile_mesh.py",
         ROOT / "quality_torch.py", ROOT / "quality_torch_from_init.py",
-        ROOT / "graft_entry_torch.py"] + sorted((ROOT / "examples_torch").glob("*.py"))
+        ROOT / "graft_entry_torch.py"] + sorted((ROOT / "examples_torch").glob("*.py")) + sorted(
+        (ROOT / "tools_torch").glob("*.py"))
 
 
 def _imported_modules(path: Path):
@@ -878,3 +879,59 @@ def test_chip_smoke_drives_phase_m_through_each_main_and_gates_phase_r_int8_reca
     r_gates = [ast.unparse(n.msg) for n in ast.walk(_function(tree, "retrieval_phase"))
                if isinstance(n, ast.Assert) and n.msg is not None]
     assert any("top-100 recall vs exact" in g and "R_INT8_RECALL_MIN" in g for g in r_gates)
+
+
+# each profiling tool with the arguments it needs besides --device
+TOOLS = {"profile_bench": ["--no-trace", "--steps", "1"],
+         "analyze_profile": ["{tmp}/trace.json"],
+         "mfu_accounting": ["{tmp}/prof.json"],
+         "aggregate_quality": ["quality_r05_seed0.json", "--output", "{tmp}/board.json"]}
+
+
+def test_the_profiling_tools_are_under_the_import_rule():
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {f"tools_torch/{name}.py" for name in TOOLS} <= names
+    assert {p.stem for p in (ROOT / "tools_torch").glob("*.py")} == set(TOOLS)
+
+
+@pytest.mark.parametrize("tool", sorted(TOOLS))
+def test_each_profiling_tool_raises_without_cuda_unless_told_cpu(monkeypatch, tmp_path, tool):
+    import importlib
+
+    mod = importlib.import_module(f"tools_torch.{tool}")
+    argv = [a.format(tmp=tmp_path) for a in TOOLS[tool]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=f"^{tool}: no CUDA device"):
+        mod.main(argv)
+    assert list(tmp_path.iterdir()) == []  # nothing read or written before the device
+    assert mod.parse_args(argv + ["--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
+                                        for p in (ROOT / "tools_torch").glob("*.py")))
+def test_no_try_in_the_profiling_tools_swallows_a_failure(path):
+    assert not _handlers_swallow(ROOT / path), path
+
+
+T_GATES = ("T: profile_bench", "launched", "loss", "T: the trace holds no kernel event",
+           "T: the band-attention rollup names", "T: sparse_embed slice")
+
+
+def test_chip_smoke_drives_phase_t_through_the_tools_and_no_try_swallows_its_gates():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    main = _function(tree, "main")
+    phase = _function(tree, "profile_phase")
+    for fn in (phase, main, _function(tree, "l_kernel_shapes")):
+        assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)], fn.name
+    assert "profile_phase(fa, totals)" in ast.unparse(main)
+    text = ast.unparse(phase)
+    for call in ("_run(profile_bench,", "analyze_profile.run(", "mfu_accounting.run(",
+                 "t_launches_per_step("):
+        assert call in text, call
+    gates = [ast.unparse(n.msg) for n in ast.walk(phase)
+             if isinstance(n, ast.Assert) and n.msg is not None]
+    for gate in T_GATES:
+        assert any(gate in g for g in gates), gate
+    m_gates = [ast.unparse(n.msg) for n in ast.walk(_function(tree, "measurement_phase"))
+               if isinstance(n, ast.Assert) and n.msg is not None]
+    assert any("device steps overlapped the save" in g for g in m_gates)
