@@ -16,7 +16,8 @@ Each of its Pallas kernels, forward and backward, has here
   kernels of the two ``.cu`` files;
 - a plain PyTorch version of the same function (``*_plain``), with the same
   rounding points;
-- a launch count in ``LAUNCHES``, raised by one at each entry-point call.
+- a launch count in ``LAUNCHES``, raised by one at each entry-point call
+  and reported in each export of the recorder (``utils/profiling``).
 
 The JAX package's public names (``flash_band_attention`` ...) return ``out``
 and carry a gradient through a ``torch.autograd.Function``: its forward
@@ -41,6 +42,7 @@ from typing import Tuple
 import torch
 
 from recommend_tpu_torch.ops import _build
+from recommend_tpu_torch.utils import profiling
 
 NEG_INF = -1e9
 FUSED_GROUP = 8  # batch·head rows per grid step of the TPU whole-tile kernels
@@ -57,6 +59,8 @@ LAUNCHES = {
     "band_attn_mh_bwd": 0,
     "band_attn_segkv_bwd": 0,
 }
+
+profiling.register("band_attention_launches", LAUNCHES)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_F, _I, _P]  # sm_scale, dtype code, stream

@@ -44,6 +44,8 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from recommend_tpu_torch.utils.profiling import count, is_recording
+
 # id(row block) -> its lookup, while a step on a mesh runs
 _ROW_SHARDED: Dict[int, Callable] = {}
 
@@ -177,13 +179,25 @@ def sparse_adagrad_apply(
     return table, accum
 
 
+def _count_rows(tag: Optional[str], groups: _Groups, vocab: int) -> None:
+    """With the recorder on (``utils/profiling``), count table ``tag``'s
+    lookups in [0, vocab) and the unique rows they touch (its in-range
+    segments), as device tensors read at the recorder's export."""
+    if tag is not None and is_recording():
+        live = groups.uids < vocab  # each in-range segment holds one lookup or more
+        count("sparse_lookups", torch.where(live, groups.lengths, 0).sum(), key=tag)
+        count("sparse_unique_rows", live.sum(), key=tag)
+
+
 def sparse_update_table(table, accum, ids, dummy_grads, lr: float,
-                        eps: float = 1e-7):
-    """Exact-mode update from raw lookups: dedup, then adagrad."""
+                        eps: float = 1e-7, tag: Optional[str] = None):
+    """Exact-mode update from raw lookups: dedup, then adagrad. ``tag``:
+    the table's name, under which the recorder counts its rows."""
     d = table.shape[-1]
-    uids, row_grads = dedup_sum(ids.reshape(-1), dummy_grads.reshape(-1, d),
-                                table.shape[0])
-    return sparse_adagrad_apply(table, accum, uids, row_grads, lr, eps)
+    groups = _group(ids.reshape(-1), table.shape[0])
+    _count_rows(tag, groups, table.shape[0])
+    row_grads = _segment_sum(groups, dummy_grads.reshape(-1, d))
+    return sparse_adagrad_apply(table, accum, groups.uids, row_grads, lr, eps)
 
 
 def sparse_rowwise_update_table(
@@ -193,17 +207,20 @@ def sparse_rowwise_update_table(
     dummy_grads: torch.Tensor,  # ids.shape + [D]
     lr: float,
     eps: float = 1e-7,
+    tag: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise adagrad, in place: every lookup adds its mean(g^2) to its
     row's accumulator, every lookup's delta uses the post-update accumulator
     of its row (duplicates share it), and each row takes the sum of its
-    lookups' deltas."""
+    lookups' deltas. ``tag``: the table's name, under which the recorder
+    counts its rows."""
     d = table.shape[-1]
     ids = ids.reshape(-1)
     keep, safe = _dropped(ids, table.shape[0])
     g = dummy_grads.reshape(-1, d).float()
     gsq = torch.where(keep, g.square().mean(-1), 0.0)
     groups = _group(ids, table.shape[0])
+    _count_rows(tag, groups, table.shape[0])
     _, urows = _dropped(groups.uids, table.shape[0])
     row_accum.index_add_(0, urows, _segment_sum(groups, gsq).to(row_accum.dtype))
     acc_rows = row_accum[safe]

@@ -26,7 +26,7 @@ the newest checkpoint there (parameters, optimizer state with its count,
 the step, and the dropout generator's state, which JAX needs not keep: it
 folds the step into a fixed key); ``train`` saves at every better
 evaluation and at the end. ``profile_dir`` traces a window of steps with
-``torch.profiler`` (``utils/profiling.py``).
+``torch.profiler`` (``utils/profiling.py``), with the step's spans on.
 
 The trainer runs on CUDA unless given ``device="cpu"``; with no device
 given and no CUDA available it raises. With a ``mesh``
@@ -62,7 +62,7 @@ from recommend_tpu_torch.training.metrics import streaming_auc
 from recommend_tpu_torch.training.optimizer import make_ranking_optimizer, sparse_lr_schedule
 from recommend_tpu_torch.training.sharded import ShardedSteps
 from recommend_tpu_torch.utils.logging import MetricLogger
-from recommend_tpu_torch.utils.profiling import StepProfiler
+from recommend_tpu_torch.utils.profiling import StepProfiler, count_allocated, span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -272,41 +272,54 @@ class RankingTrainer(ShardedSteps):
                     generator: Optional[torch.Generator] = None):
         """One step on a ``_put_batch`` batch; ``generator`` (CPU) drives
         dropout. Updates the state's tensors in place and returns
-        (the state one step on, metrics as device tensors)."""
+        (the state one step on, metrics as device tensors). With the
+        recorder on (``utils/profiling``) the step is the span
+        ``train_step`` over ``forward``, ``backward``, ``optimizer`` and
+        ``sparse_update``, and counts ``activation_bytes`` (what the
+        backward holds), ``host_syncs`` and each table's lookups and unique
+        rows."""
         cfg = self.cfg
         params = state.params
         sparse = cfg.use_sparse_embedding_updates
-        dummies = self._make_dummies(batch) if sparse else {}
         names = [n for n, t in params.items() if t.requires_grad]
-        with self._on_mesh(params):
-            logits = self._logits(params, batch, deterministic=False,
-                                  dummies=dummies or None, generator=generator)
-            loss, metrics = multi_task_bce_loss(logits, batch["labels"])
-            if self.mesh is not None:  # this rank's share of the global mean
-                share = 1.0 / self.mesh.shape["data"]
-                loss = loss * share
-                metrics = {k: v * share for k, v in metrics.items()}
-            grads = torch.autograd.grad(
-                loss, [params[n] for n in names] + list(dummies.values()), allow_unused=True)
-        gparams = {n: torch.zeros_like(params[n]) if g is None else g
-                   for n, g in zip(names, grads)}
-        self._reduce_grads(gparams)
-        if self.debug_metrics:
-            self._add_debug_metrics(metrics, logits, params)
-        opt_state = state.opt_state[0] if sparse else state.opt_state
-        metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state,
-                                                   self._grad_norm(gparams))
-        if sparse:
-            gdummies = self._gather_batch(dict(zip(dummies, grads[len(names):])))
-            dropped = self._apply_sparse_updates(
-                params, state.opt_state[1], gdummies, self._gather_batch(
-                    {k: batch[k] for k in ("non_seq", "sequences", "seq_valid")}
-                    if self.mesh is not None else batch),
-                self._sparse_lr(state.step) if callable(self._sparse_lr) else self._sparse_lr)
-            if cfg.sparse_scatter_budget > 0:
-                metrics["sparse_dropped_rows"] = dropped
-        metrics = self._reduce_metrics({k: v.detach() for k, v in metrics.items()},
-                                       [k for k in metrics if k.endswith("loss")])
+        with span("train_step", step=state.step):
+            with self._on_mesh(params):
+                with span("forward"):
+                    dummies = self._make_dummies(batch) if sparse else {}
+                    logits = self._logits(params, batch, deterministic=False,
+                                          dummies=dummies or None, generator=generator)
+                    loss, metrics = multi_task_bce_loss(logits, batch["labels"])
+                    if self.mesh is not None:  # this rank's share of the global mean
+                        share = 1.0 / self.mesh.shape["data"]
+                        loss = loss * share
+                        metrics = {k: v * share for k, v in metrics.items()}
+                count_allocated("activation_bytes")
+                with span("backward"):
+                    grads = torch.autograd.grad(
+                        loss, [params[n] for n in names] + list(dummies.values()),
+                        allow_unused=True)
+                    gparams = {n: torch.zeros_like(params[n]) if g is None else g
+                               for n, g in zip(names, grads)}
+                    self._reduce_grads(gparams)
+            if self.debug_metrics:
+                self._add_debug_metrics(metrics, logits, params)
+            opt_state = state.opt_state[0] if sparse else state.opt_state
+            with span("optimizer"):
+                metrics["grad_norm"] = self.optimizer.step(params, gparams, opt_state,
+                                                           self._grad_norm(gparams))
+            if sparse:
+                with span("sparse_update"):
+                    gdummies = self._gather_batch(dict(zip(dummies, grads[len(names):])))
+                    dropped = self._apply_sparse_updates(
+                        params, state.opt_state[1], gdummies, self._gather_batch(
+                            {k: batch[k] for k in ("non_seq", "sequences", "seq_valid")}
+                            if self.mesh is not None else batch),
+                        self._sparse_lr(state.step) if callable(self._sparse_lr)
+                        else self._sparse_lr)
+                if cfg.sparse_scatter_budget > 0:
+                    metrics["sparse_dropped_rows"] = dropped
+            metrics = self._reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                           [k for k in metrics if k.endswith("loss")])
         return state._replace(step=state.step + 1), metrics
 
     @torch.no_grad()

@@ -143,10 +143,10 @@ class ShardedSteps:
                      ids: torch.Tensor, grads: torch.Tensor, lr) -> None:
         """``update`` (a sparse-update rule) of the global ``ids`` on the
         rows of ``table`` this rank holds; the rest are out of its range
-        and dropped."""
+        and dropped. The recorder counts the update's rows under ``name``."""
         if name in self.sharded:
             ids = ids - self.mesh.rank("model") * table.shape[0]
-        update(table, accum, ids, grads, lr)
+        update(table, accum, ids, grads, lr, tag=name)
 
     def _full_state(self, params: Tensors, opt_state: Any):
         """(params, optimizer state) in the single-device layout."""

@@ -109,7 +109,8 @@ def test_profile_bench_times_and_traces_a_narrowed_step_on_the_cpu(monkeypatch, 
     assert Path(traced["trace"]).is_file() and math.isfinite(traced["loss"])
     trace = json.loads(Path(traced["trace"]).read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "train_step_0" in names
+    # the trainer's step count: one step and the warm steps came before
+    assert f"train_step_{1 + profile_bench.WARM_STEPS}" in names
     assert any(e.get("cat") == "python_function" for e in trace["traceEvents"])
     # a CPU trace holds no device kernel: the analysis refuses it
     with pytest.raises(SystemExit, match="no device kernels"):

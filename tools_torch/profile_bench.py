@@ -14,8 +14,10 @@ warm steps cycling 8 placed batches and a fetch, then the window:
   (``ranking_model_flops`` × batch over the wall step time, against the
   card's dense bf16 peak, ``evaluation.benchmark.peak_flops``);
 - otherwise ``torch.profiler`` over ``--steps`` steps (CPU and CUDA
-  activity, stacks, shapes and flops; one ``train_step_<i>`` range a step),
-  one Chrome trace written under ``--out``, and the host-observed ms/step.
+  activity, stacks, shapes and flops; the recorder on, so that each step's
+  spans mark it: ``train_step_<i>``, i the trainer's step count, over
+  ``forward``, ``backward``, ``optimizer`` and ``sparse_update``), one
+  Chrome trace written under ``--out``, and the host-observed ms/step.
 
 Usage (one CUDA card):
     python tools_torch/profile_bench.py --geometry L --seq 396 --no-trace --steps 10
@@ -45,6 +47,7 @@ from recommend_tpu_torch.data.synthetic import make_ranking_data
 from recommend_tpu_torch.evaluation.benchmark import (device_memory_stats, peak_flops,
                                                       ranking_model_flops)
 from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+from recommend_tpu_torch.utils import profiling
 
 GEOMETRY = {
     "S": dict(embed_dim=256, num_layers=6, num_heads=2, ffn_dim=1024,
@@ -143,10 +146,9 @@ def run(args: argparse.Namespace) -> dict:
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts, with_stack=True, record_shapes=True,
-                                with_flops=True) as prof:
+                                with_flops=True) as prof, profiling.recording():
         for i in range(args.steps):
-            with torch.profiler.record_function(f"train_step_{i}"):
-                state, m = trainer._train_step(state, batches[i % PLACED_BATCHES])
+            state, m = trainer._train_step(state, batches[i % PLACED_BATCHES])
         loss = float(m["loss"])
         dt = time.perf_counter() - t0
     os.makedirs(args.out, exist_ok=True)
