@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the band-attention kernels from csrc/ with nvcc (sm_90a), one
-   nvcc per source, all at once;
+2. build the kernels of csrc/ (band attention, RMSNorm) with nvcc
+   (sm_90a), one nvcc per source, all at once;
 3. hold each of the four forward kernels against its plain PyTorch version
    at the serving shapes (the blocked kernel also at every other Dh, the bh
    kernel first at training phase TC's layer 0, then at the serving
@@ -25,7 +25,13 @@ Phases, in order; any failure raises and exits non-zero:
    backward and SDPA's backward (the bf16 calls run the tensor-core passes:
    B1b, B3b and B4b both, B2dq and B2dkv one each; also at small shapes
    that reach each edge of their tiling, B1b and B3b at Dh 64, 96, 48 and
-   16 as well, B2dq and B2dkv at Dh 64 and 96, and B4b at every Dh);
+   16 as well, B2dq and B2dkv at Dh 64 and 96, and B4b at every Dh); then
+   RMSNorm's kernels (``csrc/rmsnorm.cu``, no TPU kernel behind them: R1f
+   the forward, R1b the backward and its dscale sum) at OneTrans-L's and
+   OneTrans-S's largest norm calls, bf16 and f32, against the plain chain
+   and its autograd, timed beside their bytes at the memory rate, the plain
+   chain and ``F.rms_norm`` (a yardstick the port never calls); every later
+   phase's norms run these kernels, and each is asserted launched;
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -739,6 +745,112 @@ def check_backward_kernels(fa, kernels):
                     }
                 del t, got, ref
                 torch.cuda.empty_cache()
+    return entries
+
+
+# RMSNorm's kernels (csrc/rmsnorm.cu; no TPU kernel behind them: XLA fused
+# the JAX package's chain): OneTrans-L's and OneTrans-S's largest norm calls,
+# the full [S; NS] stream of layer 0 at the cells' batches. R1f is the
+# forward as training runs it (rstd written), R1b the backward and the
+# dscale sum. The first shape is the one the JSON line reports.
+RMSNORM_SHAPES = [(512, 1202, 384), (2048, 362, 256)]
+RMSNORM_EPS = 1e-6
+RMSNORM_ENTRIES = ("rmsnorm_fwd", "rmsnorm_bwd")  # R1f, R1b in the JSON line
+
+
+def _rmsnorm_close(name, got, ref, dtype):
+    """Within one bf16 spacing of the plain value (bf16: both sides round
+    one float32 value once) plus 1e-5 of the largest |value| (the order of
+    a row's float32 sum); float32 within the latter alone. Returns the
+    largest difference."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    limit = 1e-5 * ref.abs().max()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(ref)
+        limit = limit + torch.ldexp(torch.ones_like(ref), e - 8)
+    assert not bool((diff > limit).any()), f"{name}: max diff {diff.max().item():.3g}"
+    return diff.max().item()
+
+
+def check_rmsnorm():
+    """R1f and R1b against the plain chain and its autograd at
+    RMSNORM_SHAPES, bf16 and f32 (dscale within 1e-4 of each column's sum
+    of |dy * xh|), timed with CUDA events beside their bound (the bytes the
+    function must move: x read and y written, with one float32 rstd a row,
+    forward; x and dy read, dx written, rstd read, backward; scale and
+    dscale; at the memory rate), the plain chain's time (backward: its
+    forward and autograd's backward less its forward) and F.rms_norm's (a
+    yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from recommend_tpu_torch.ops import normalization as nm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    entries = {}
+    eps = RMSNORM_EPS
+    for i, shape in enumerate(RMSNORM_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            d = shape[-1]
+            x = (1.7 * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+            dy = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            scale = 1.0 + 0.3 * torch.randn(d, generator=gen, device="cuda")
+            y, rstd = nm.rmsnorm_fwd(x, scale, eps, with_rstd=True)
+            dx, dscale = nm.rmsnorm_bwd(x, dy, rstd, scale, with_dscale=True)
+            torch.cuda.synchronize()
+            xg, sg = x.detach().requires_grad_(), scale.detach().requires_grad_()
+            ref_y = nm.rms_norm_plain(xg, sg, eps)
+            ref_dx, ref_dscale = torch.autograd.grad(ref_y, (xg, sg), dy)
+            y_err = _rmsnorm_close(f"R1f {shape} {dn} y", y, ref_y, dtype)
+            dx_err = _rmsnorm_close(f"R1b {shape} {dn} dx", dx, ref_dx, dtype)
+            terms = (dy.float() * x.float() * rstd[..., None]).abs().reshape(-1, d).sum(0)
+            ds_gap = ((dscale - ref_dscale).abs() / terms).max().item()
+            assert ds_gap <= 1e-4, f"R1b {shape} {dn}: dscale gap {ds_gap}"
+            del xg, sg, ref_y, ref_dx, ref_dscale, terms
+            rows = x.numel() // d
+            es = x.element_size()
+            fwd_bytes = 2 * x.numel() * es + 4 * rows + 4 * d
+            bwd_bytes = 3 * x.numel() * es + 4 * rows + 8 * d
+            f_ms = cuda_ms(lambda: nm.rmsnorm_fwd(x, scale, eps, with_rstd=True), 20)
+            b_ms = cuda_ms(lambda: nm.rmsnorm_bwd(x, dy, rstd, scale, with_dscale=True), 20)
+            xg, sg = x.detach().requires_grad_(), scale.detach().requires_grad_()
+            pf_ms = cuda_ms(lambda: nm.rms_norm_plain(x, scale, eps), 5)
+            pfb_ms = cuda_ms(lambda: torch.autograd.grad(
+                nm.rms_norm_plain(xg, sg, eps), (xg, sg), dy), 5)
+            w = scale.to(dtype).requires_grad_()
+            lf_ms = cuda_ms(lambda: F.rms_norm(x, (d,), w, eps), 20)
+            lfb_ms = cuda_ms(lambda: torch.autograd.grad(
+                F.rms_norm(xg, (d,), w, eps), (xg, w), dy), 20)
+            rows_out = []
+            for kid, name, ms, plain_ms, lib_ms, nbytes, err in (
+                    ("R1f", "rmsnorm_fwd", f_ms, pf_ms, lf_ms, fwd_bytes, y_err),
+                    ("R1b", "rmsnorm_bwd", b_ms, pfb_ms - pf_ms, lfb_ms - lf_ms, bwd_bytes,
+                     dx_err)):
+                bound_ms = nbytes / PEAK_BYTES * 1e3
+                rows_out.append(f"{kid} {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes, "
+                                f"{100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms, "
+                                f"F.rms_norm {lib_ms:.4f} ms")
+                if i == 0 and dtype == torch.bfloat16:
+                    entries[name] = {
+                        "name": name, "id": kid, "route": "cuda",
+                        "source": CSRC + "rmsnorm.cu",
+                        "replaces": "none (recommend_tpu/ops/normalization.py: the "
+                                    "float32 chain, which XLA fuses)",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                        "library_ms": lib_ms, "shape": list(shape), "dtype": dn,
+                    }
+            log(f"kernel rmsnorm {dn} {shape}: y err {y_err:.3g}, dx err {dx_err:.3g}, "
+                f"dscale gap {ds_gap:.3g} of sum|dy*xh| | " + "; ".join(rows_out)
+                + f" [{CARD}]")
+            del x, dy, y, rstd, dx, dscale, xg, sg, w
+            torch.cuda.empty_cache()
+    nm.reset_launch_counts()  # from here on, the main path's launches
     return entries
 
 
@@ -3594,6 +3706,7 @@ def main() -> int:
                 for kernels in (KERNELS, BWD_KERNELS))
     entries = check_kernels(fa, fwd)
     entries.update(check_backward_kernels(fa, bwd))
+    entries.update(check_rmsnorm())
     totals = {name: 0 for name in fa.LAUNCHES}
     # per call: score_request (encode_s) and batch_inference (full forward)
     serve_phase("A", 2, 64, 48,
@@ -3628,10 +3741,17 @@ def main() -> int:
     for name, n in totals.items():
         assert n > 0, f"{name} never launched on the main path"
         entries[name]["launches"] = n
+    from recommend_tpu_torch.ops import normalization as nm
+
+    for name, n in nm.LAUNCHES.items():
+        assert n > 0, f"{name} never launched on the main path"
+    for name in RMSNORM_ENTRIES:
+        entries[name]["launches"] = nm.LAUNCHES[name]
     torch.cuda.synchronize()
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
-    print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS + BWD_KERNELS]}))
+    print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS + BWD_KERNELS]
+                      + [entries[name] for name in RMSNORM_ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

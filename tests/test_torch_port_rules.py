@@ -33,8 +33,9 @@
   config is ``__graft_entry__``'s, field for field; phase M of
   ``chip_smoke.py`` drives each through its ``main`` and gates it, and
   phase R gates the int8 searches' recall against the exact scan;
-- each CUDA entry point takes exactly the arguments its ctypes binding
-  passes, and a build without nvcc raises;
+- each CUDA entry point (band attention's nine, the norm's three) takes
+  exactly the arguments its ctypes binding passes, and a build without nvcc
+  raises;
 - the bf16 calls of every forward (B2f, B4f, B3f, B1f) reach the
   tensor-core kernel of ``band_attention_fwd_sm90.cuh``, at every head width
   the kernels are instantiated for (B1f with its NS segment's maps); their
@@ -59,6 +60,7 @@ from recommend_tpu import config as jconfig
 from recommend_tpu_torch import config as tconfig
 from recommend_tpu_torch.ops import _build
 from recommend_tpu_torch.ops import flash_attention as tfa
+from recommend_tpu_torch.ops import normalization as tnorm
 
 torch.set_num_threads(1)
 
@@ -168,8 +170,10 @@ def test_make_mesh_without_cuda_raises_unless_told_cpu(monkeypatch):
 
 
 def test_cuda_entry_points_match_their_bindings():
-    for name, argtypes in tfa._SIGNATURES.items():
-        src = (_build.CSRC / f"{tfa.LIBRARY[name]}.cu").read_text()
+    library = dict(tfa.LIBRARY)
+    library.update({name: tnorm.LIBRARY for name in tnorm._SIGNATURES})
+    for name, argtypes in {**tfa._SIGNATURES, **tnorm._SIGNATURES}.items():
+        src = (_build.CSRC / f"{library[name]}.cu").read_text()
         extern = src[src.index('extern "C"'):]
         m = re.search(rf"int {name}\(([^)]*)\)", extern)
         assert m, f"{name} is not an extern C entry point"
@@ -182,7 +186,14 @@ def test_cuda_entry_points_match_their_bindings():
     assert set(tfa._SIGNATURES) == set(tfa.LAUNCHES) == set(tfa.LIBRARY)
     # one entry point per Pallas kernel: four forward, five backward (B3b too)
     assert len(tfa._SIGNATURES) == 9 and tfa.LIBRARY["band_attn_mh_bwd"] == "band_attention_bwd"
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(tfa.LIBRARY.values())
+    # the norm's three: forward, backward, dscale (no Pallas kernel behind them)
+    assert set(tnorm._SIGNATURES) == set(tnorm.LAUNCHES) == {
+        "rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dscale"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(library.values())
+    # a new header would be hashed into every library's name (a rebuild of all)
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {
+        "band_attention_common.cuh", "band_attention_fwd_sm90.cuh",
+        "band_attention_bwd_sm90.cuh", "band_attention_sm90_common.cuh"}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
