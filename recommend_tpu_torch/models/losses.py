@@ -14,7 +14,8 @@ every rank are gathered to be each rank's columns, through an all-gather
 whose backward is a reduce-scatter, so each rank scores its rows against
 all B candidates; the counts of valid rows are global. Each rank returns
 its share of the global loss and metrics: the sum over ranks is what one
-device computes on the whole batch.
+device computes on the whole batch. With the recorder on
+(``utils/profiling``) each in-batch loss is the span ``in_batch_loss``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from recommend_tpu_torch.utils.profiling import span
 
 
 def _in_batch(
@@ -86,10 +89,11 @@ def in_batch_softmax_loss(
     it. With ``valid``, the loss and the accuracy are means over the valid
     rows (a denominator of at least 1). Returns (loss, {"loss",
     "in_batch_accuracy"}); on a ``mesh``, this rank's share of them."""
-    loss, acc = _in_batch(
-        interests[None], _columns(item_embeddings, mesh)[None],
-        None if item_popularity is None else _columns(item_popularity, mesh)[None],
-        label_smoothing, None if valid is None else valid[None], mesh)
+    with span("in_batch_loss"):
+        loss, acc = _in_batch(
+            interests[None], _columns(item_embeddings, mesh)[None],
+            None if item_popularity is None else _columns(item_popularity, mesh)[None],
+            label_smoothing, None if valid is None else valid[None], mesh)
     return loss[0], {"loss": loss[0], "in_batch_accuracy": acc[0]}
 
 
@@ -105,13 +109,14 @@ def seq2seq_in_batch_loss(
     items of the same position across the batch, with ``valid``; the
     positions are weighted by their count of valid rows. On a ``mesh``,
     this rank's share."""
-    losses, accs = _in_batch(
-        interests.transpose(0, 1), _columns(item_embeddings, mesh).transpose(0, 1),
-        None if item_popularity is None else _columns(item_popularity, mesh).transpose(0, 1),
-        label_smoothing, valid.transpose(0, 1), mesh)
-    w = _global_sum(valid.float().sum(dim=0), mesh)  # [R]
-    wsum = w.sum().clamp_min(1.0)
-    loss = (losses * w).sum() / wsum
+    with span("in_batch_loss"):
+        losses, accs = _in_batch(
+            interests.transpose(0, 1), _columns(item_embeddings, mesh).transpose(0, 1),
+            None if item_popularity is None else _columns(item_popularity, mesh).transpose(0, 1),
+            label_smoothing, valid.transpose(0, 1), mesh)
+        w = _global_sum(valid.float().sum(dim=0), mesh)  # [R]
+        wsum = w.sum().clamp_min(1.0)
+        loss = (losses * w).sum() / wsum
     return loss, {"loss": loss, "in_batch_accuracy": (accs * w).sum() / wsum}
 
 

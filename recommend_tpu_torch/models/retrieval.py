@@ -21,7 +21,8 @@ Masks are additive float32 biases (-1e9 per masked term, so a key can take
 two: -2e9, still finite in float32). Dropout and remat follow the ranking
 model: with ``deterministic=False`` an explicit ``torch.Generator`` draws one
 seed per block, and ``use_remat`` recomputes each block under
-``torch.utils.checkpoint``.
+``torch.utils.checkpoint``. With the recorder on (``utils/profiling``) the
+main stack of blocks is the span ``tower_blocks``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from recommend_tpu_torch.ops.compression import AdaptiveCompression
 from recommend_tpu_torch.ops.embedding import FeatureEmbedding
 from recommend_tpu_torch.ops.normalization import RMSNorm
 from recommend_tpu_torch.ops.transformer import TransformerBlock
+from recommend_tpu_torch.utils.profiling import span
 
 Features = Dict[str, torch.Tensor]
 Dummies = Optional[Dict[str, torch.Tensor]]
@@ -144,11 +146,12 @@ class RetrievalTower(nn.Module):
         if not deterministic and cfg.dropout_rate > 0.0:
             seeds = torch.randint(0, 2**62, (cfg.num_layers,), generator=generator).tolist()
         remat = cfg.use_remat and torch.is_grad_enabled()
-        for blk, seed in zip(self.blocks, seeds):
-            if remat:
-                x = checkpoint(blk, x, bias, deterministic, seed, use_reentrant=False)
-            else:
-                x = blk(x, bias, deterministic, seed)
+        with span("tower_blocks"):
+            for blk, seed in zip(self.blocks, seeds):
+                if remat:
+                    x = checkpoint(blk, x, bias, deterministic, seed, use_reentrant=False)
+                else:
+                    x = blk(x, bias, deterministic, seed)
         return x
 
     def forward(

@@ -7,7 +7,8 @@ group of the first two is encoded by a bidirectional transformer and
 mean-pooled over its valid items into one token, 55 tokens in all. Every
 segment's groups fold into the batch ([B, n·g, D] -> [B·n, g, D]), so one
 encoder call per segment serves all its groups. A compressed token is valid
-when its group holds any valid item.
+when its group holds any valid item. With the recorder on
+(``utils/profiling``) a call is the span ``compression``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from recommend_tpu_torch.config import RetrievalConfig
 from recommend_tpu_torch.ops.attention import padding_mask_bias
 from recommend_tpu_torch.ops.transformer import TransformerBlock
+from recommend_tpu_torch.utils.profiling import span
 
 
 class GroupEncoder(nn.Module):
@@ -58,22 +60,23 @@ class AdaptiveCompression(nn.Module):
                 valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, L, D] item tokens; valid: [B, L] bool.
         Returns (tokens [B, T, D], token_valid [B, T])."""
-        cfg = self.config
-        b, l, d = x.shape
-        assert l == cfg.max_seq_len, (l, cfg.max_seq_len)
-        out_tokens, out_valid = [], []
-        offset = 0
-        for i, spec in enumerate(cfg.schedule_specs()):
-            seg = x[:, offset:offset + spec.length]
-            seg_valid = valid[:, offset:offset + spec.length]
-            offset += spec.length
-            if spec.group_size == 1:
-                out_tokens.append(seg)
-                out_valid.append(seg_valid)
-                continue
-            n, g = spec.num_tokens, spec.group_size
-            gvalid = seg_valid.reshape(b * n, g)
-            pooled = getattr(self, f"segment_{i}")(seg.reshape(b * n, g, d), gvalid)
-            out_tokens.append(pooled.reshape(b, n, d))
-            out_valid.append(gvalid.any(dim=-1).reshape(b, n))
-        return torch.cat(out_tokens, dim=1), torch.cat(out_valid, dim=1)
+        with span("compression"):
+            cfg = self.config
+            b, l, d = x.shape
+            assert l == cfg.max_seq_len, (l, cfg.max_seq_len)
+            out_tokens, out_valid = [], []
+            offset = 0
+            for i, spec in enumerate(cfg.schedule_specs()):
+                seg = x[:, offset:offset + spec.length]
+                seg_valid = valid[:, offset:offset + spec.length]
+                offset += spec.length
+                if spec.group_size == 1:
+                    out_tokens.append(seg)
+                    out_valid.append(seg_valid)
+                    continue
+                n, g = spec.num_tokens, spec.group_size
+                gvalid = seg_valid.reshape(b * n, g)
+                pooled = getattr(self, f"segment_{i}")(seg.reshape(b * n, g, d), gvalid)
+                out_tokens.append(pooled.reshape(b, n, d))
+                out_valid.append(gvalid.any(dim=-1).reshape(b, n))
+            return torch.cat(out_tokens, dim=1), torch.cat(out_valid, dim=1)

@@ -78,7 +78,7 @@ from recommend_tpu_torch.training.optimizer import make_retrieval_optimizer
 from recommend_tpu_torch.training.ranking_trainer import TrainState, _check_layout
 from recommend_tpu_torch.training.sharded import ShardedSteps
 from recommend_tpu_torch.utils.logging import MetricLogger
-from recommend_tpu_torch.utils.profiling import StepProfiler, span
+from recommend_tpu_torch.utils.profiling import StepProfiler, count, count_allocated, span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -371,39 +371,53 @@ class RetrievalTrainer(ShardedSteps):
         masked positions (``mask_positions`` [B, M] gives them instead, for
         the global batch on a mesh) and the dropout seeds. Updates the
         state's tensors in place and returns (the state one step on,
-        metrics as device tensors)."""
+        metrics as device tensors). With the recorder on
+        (``utils/profiling``) the step is the span ``train_step`` over
+        ``forward`` (holding the tower's ``compression`` and
+        ``tower_blocks`` and the ``in_batch_loss``), ``backward``,
+        ``optimizer`` and ``sparse_update``, and counts
+        ``activation_bytes`` (what the backward holds), ``host_syncs``,
+        each table's lookups and unique rows and, with sparse updates,
+        ``sparse_dropped_rows``."""
+        cfg = self.cfg
+        params = state.params
+        sparse = cfg.use_sparse_embedding_updates
+        names = [n for n, t in params.items() if t.requires_grad]
         with span("train_step", step=state.step):
-            cfg = self.cfg
-            params = state.params
-            sparse = cfg.use_sparse_embedding_updates
             pos = None
             if self.mode == "masked":
                 b = batch["history_valid"].shape[0] * (1 if self.mesh is None
                                                        else self.mesh.shape["data"])
                 pos = (self.draw_mask_positions(b, generator) if mask_positions is None
                        else torch.as_tensor(mask_positions).to(self.device, torch.long))
-            dummies = self._make_dummies(batch) if sparse else None
-            names = [n for n, t in params.items() if t.requires_grad]
-            flat = [] if dummies is None else [dummies[g][k] for g in ("hist", "tgt")
-                                                for k in SPARSE_TABLES]
             with self._on_mesh(params):
-                loss, metrics = functional_call(
-                    self._apply, {f"tower.{k}": v for k, v in params.items()},
-                    (self._loss, batch, dummies, generator,
-                     None if pos is None else self._global_rows(pos)))
-                grads = torch.autograd.grad(loss, [params[n] for n in names] + flat,
-                                            allow_unused=True)
-            gparams = {n: torch.zeros_like(params[n]) if g is None else g
-                       for n, g in zip(names, grads)}
-            self._reduce_grads(gparams)
-            metrics["grad_norm"] = self._grad_norm(gparams)
-            self.optimizer.step(params, gparams, state.opt_state[0] if sparse else state.opt_state)
+                with span("forward"):
+                    dummies = self._make_dummies(batch) if sparse else None
+                    flat = [] if dummies is None else [dummies[g][k] for g in ("hist", "tgt")
+                                                        for k in SPARSE_TABLES]
+                    loss, metrics = functional_call(
+                        self._apply, {f"tower.{k}": v for k, v in params.items()},
+                        (self._loss, batch, dummies, generator,
+                         None if pos is None else self._global_rows(pos)))
+                count_allocated("activation_bytes")
+                with span("backward"):
+                    grads = torch.autograd.grad(loss, [params[n] for n in names] + flat,
+                                                allow_unused=True)
+                    gparams = {n: torch.zeros_like(params[n]) if g is None else g
+                               for n, g in zip(names, grads)}
+                    self._reduce_grads(gparams)
+            with span("optimizer"):
+                metrics["grad_norm"] = self._grad_norm(gparams)
+                self.optimizer.step(params, gparams,
+                                    state.opt_state[0] if sparse else state.opt_state)
             if sparse:
-                it = iter(grads[len(names):])
-                gd = {g: {k: next(it) for k in SPARSE_TABLES} for g in ("hist", "tgt")}
-                dropped = self._apply_sparse_updates(params, state.opt_state[1],
-                                                     self._gather_batch(gd),
-                                                     self._gather_batch(batch), pos)
+                with span("sparse_update"):
+                    it = iter(grads[len(names):])
+                    gd = {g: {k: next(it) for k in SPARSE_TABLES} for g in ("hist", "tgt")}
+                    dropped = self._apply_sparse_updates(params, state.opt_state[1],
+                                                         self._gather_batch(gd),
+                                                         self._gather_batch(batch), pos)
+                count("sparse_dropped_rows", dropped)
                 if cfg.sparse_scatter_budget > 0:
                     metrics["sparse_dropped_rows"] = dropped
             metrics = self._reduce_metrics({k: v.detach() for k, v in metrics.items()},
