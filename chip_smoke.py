@@ -31,7 +31,17 @@ Phases, in order; any failure raises and exits non-zero:
    OneTrans-S's largest norm calls, bf16 and f32, against the plain chain
    and its autograd, timed beside their bytes at the memory rate, the plain
    chain and ``F.rms_norm`` (a yardstick the port never calls); every later
-   phase's norms run these kernels, and each is asserted launched;
+   phase's norms run these kernels, and each is asserted launched; then the
+   retrieval tower's attention kernels (``csrc/tower_attention.cu``, no TPU
+   kernel behind them: T1f the forward, T1b the backward) at the
+   KuaiFormer cell's calls (the main stack's 1,024 × 275 tokens under the
+   interleaved mask, the encoders' 2,048 × 64 and 5,120 × 16 under their
+   padding), bf16 and f32, against the plain attention and its autograd,
+   timed beside their bound, the plain path and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
+   and a step's 8 calls of each against ``attention_work``'s least time;
+   every later phase's tower runs these kernels, and each is asserted
+   launched;
 4. serve three engines at full OneTrans-S width (random weights from a
    seed): A (2 heads, 64-item window), B (2 heads, 400-item window, the long
    history) and C (4 heads), each 400 requests of 100 candidates and 20
@@ -115,7 +125,8 @@ Phases, in order; any failure raises and exits non-zero:
     band-attention kernel, the counts held at 0). Gates: one float32 step
     (dropout 0, the video table cut to 100k rows) of each mode, single,
     seq2seq and masked (the masked positions handed to both), on the card
-    against the CPU from one state (loss 1e-5, grad norm 1e-4 relative,
+    against the CPU from one state (T1f and T1b launched once for each of
+    the step's 8 attentions, the plain path never; loss 1e-5, grad norm 1e-4 relative,
     each dense gradient 1e-4 of its tensor's largest, parameters, tables and
     accumulators 1e-5 / 1e-4, the parameters against adamw of the card's
     own gradients: see the constants of phase RT); three steps of
@@ -851,6 +862,167 @@ def check_rmsnorm():
             del x, dy, y, rstd, dx, dscale, xg, sg, w
             torch.cuda.empty_cache()
     nm.reset_launch_counts()  # from here on, the main path's launches
+    return entries
+
+
+# The retrieval tower's attention kernels (csrc/tower_attention.cu; no TPU
+# kernel behind them: XLA fused the JAX package's jnp attention): the
+# KuaiFormer cell's calls, the main stack (1,024 histories, 275 tokens under
+# the interleaved mask) and the two group encoders (2,048 groups of 64 and
+# 5,120 of 16, padding alone), 8 heads of 16. T1f is the forward as training
+# runs it (its row statistics written), T1b the backward. The first shape is
+# the one the JSON line reports; a step runs the first shape 6 times and each
+# encoder once.
+TOWER_SHAPES = [("main", 1024, 55, 4), ("groups_of_64", 2048, 64, 0),
+                ("groups_of_16", 5120, 16, 0)]
+TOWER_HEADS, TOWER_DH = 8, 16
+TOWER_LAYERS = {"main": 6, "groups_of_64": 1, "groups_of_16": 1}
+TOWER_ENTRIES = ("tower_attn_fwd", "tower_attn_bwd")  # T1f, T1b in the JSON line
+
+
+def _tower_close(name, got, ref, rel):
+    """Finite on both sides; each element within ``rel`` of the largest
+    |value|, plus one bf16 spacing of the plain value for bf16; the whole
+    tensor's ||got - ref|| within 2^-8 (bf16) or 1e-5 (f32) of ||ref||
+    (tests/test_torch_tower_attention_chip.py gives each tolerance's reason).
+    Returns the largest difference over max|ref|."""
+    import torch
+
+    got, ref32 = got.float(), ref.float()
+    assert bool(torch.isfinite(ref32).all()), f"{name}: the plain path is not finite"
+    assert bool(torch.isfinite(got).all()), f"{name}: not finite"
+    diff = (got - ref32).abs()
+    top = ref32.abs().max()
+    limit = rel * top
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref32)
+        limit = limit + torch.ldexp(torch.ones_like(ref32), e - 8)
+    assert not bool((~(diff <= limit)).any()), f"{name}: max diff {diff.max().item():.3g}"
+    rel_l2 = 2.0 ** -8 if ref.dtype == torch.bfloat16 else 1e-5
+    err, norm = torch.linalg.vector_norm(got - ref32), torch.linalg.vector_norm(ref32)
+    assert bool(err <= rel_l2 * norm), f"{name}: ||got - ref|| {(err / norm).item():.3g} of ||ref||"
+    return (diff.max() / top).item() if top > 0 else diff.max().item()
+
+
+def check_tower_attention():
+    """T1f and T1b against the plain attention and its autograd at
+    TOWER_SHAPES, bf16 (and f32 at the encoders' shapes and a quarter of the
+    main batch), timed with CUDA events beside their bound (the least time
+    for each kernel's work: 4·Dh flops an allowed pair forward and 8·Dh
+    backward at the bf16 peak; Q, K, V read and O written forward, Q, K, V,
+    dO read and dQ, dK, dV written backward, at the memory rate; pairs
+    counted as ``perfbench/yardstick/retrieval_flops`` counts them), the
+    plain path's time (backward: its forward and autograd's backward less
+    its forward) and ``F.scaled_dot_product_attention``'s under the dense
+    mask (a yardstick the port never calls); then a step's tower attention
+    (6 main-stack calls and one a group encoder) against
+    ``retrieval_flops.attention_work``'s least time."""
+    import torch
+    import torch.nn.functional as F
+
+    from perfbench.yardstick.retrieval_flops import main_pairs
+    from recommend_tpu_torch.models.retrieval import _interleaved_causal_mask
+    from recommend_tpu_torch.ops import attention as ta
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    entries, step_ms, step_bound = {}, {"fwd": 0.0, "bwd": 0.0}, 0.0
+    h, dh = TOWER_HEADS, TOWER_DH
+    for i, (label, b, t, k) in enumerate(TOWER_SHAPES):
+        if k:  # the main stack: full histories, every pair the mask allows
+            length = t * (1 + k)
+            bias = _interleaved_causal_mask(torch.ones(b, t, dtype=torch.bool, device="cuda"), k)
+            pairs = main_pairs(t, k)
+        else:  # a group encoder: about one group in eight wholly padded
+            length = t
+            valid = torch.rand(b, 1, generator=gen, device="cuda") > 0.125
+            bias = ta.FactoredBias(None, ta.padding_mask_bias(valid.expand(b, t))[:, 0, 0])
+            pairs = t * t
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            rows = b if dtype == torch.bfloat16 or not k else b // 4
+            q, kk, v, dout = ((s * torch.randn(rows, length, h * dh, generator=gen,
+                                               device="cuda")).to(dtype)
+                              for s in (1.5, 1.5, 1.0, 1.0))
+            bb = bias if rows == b else bias._replace(key=bias.key[:rows])
+            o, stats = ta.tower_attn_fwd(q, kk, v, bb.structure, bb.key, bb.tiles, h,
+                                         with_stats=True)
+            dq, dk, dv = ta.tower_attn_bwd(q, kk, v, dout, stats, bb.structure, bb.key, bb.tiles,
+                                           h)
+            torch.cuda.synchronize()
+            grads = [x.detach().requires_grad_() for x in (q, kk, v)]
+
+            def split(x):
+                return x.reshape(*x.shape[:-1], h, dh)
+
+            def plain(xs=grads):
+                return ta.dot_product_attention(*map(split, xs), bb.dense()).flatten(-2)
+
+            ref = plain()
+            refs = (ref.detach(),) + torch.autograd.grad(ref, grads, dout)
+            bf16 = dtype == torch.bfloat16
+            rels = (2.0 ** -8, 2.0 ** -7, 2.0 ** -7, 2.0 ** -7) if bf16 else (1e-5, 1e-4, 1e-4,
+                                                                              1e-4)
+            errs = [_tower_close(f"T1 {label} {dn} {n}", g, r, rel)
+                    for n, g, r, rel in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), refs, rels)]
+            del ref, refs
+            if not bf16:
+                log(f"kernel tower attention {label} {dn} [{rows}, {length}, {h}x{dh}]: "
+                    f"err of max|ref| o {errs[0]:.3g}, dq {errs[1]:.3g}, dk {errs[2]:.3g}, "
+                    f"dv {errs[3]:.3g} [{CARD}]")
+                continue
+            f_ms = cuda_ms(lambda: ta.tower_attn_fwd(q, kk, v, bb.structure, bb.key, bb.tiles,
+                                                     h, with_stats=True), 10)
+            b_ms = cuda_ms(lambda: ta.tower_attn_bwd(q, kk, v, dout, stats, bb.structure,
+                                                     bb.key, bb.tiles, h), 10)
+            pf_ms = cuda_ms(plain, 3)
+            pfb_ms = cuda_ms(lambda: torch.autograd.grad(plain(), grads, dout), 3)
+            mask = bb.dense().to(dtype).expand(rows, 1, length, length)
+            qs, ks, vs = (split(x).transpose(1, 2).detach().requires_grad_() for x in (q, kk, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+            lf_ms = cuda_ms(sdpa, 10)
+            do4 = split(dout).transpose(1, 2)
+            lfb_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), do4), 10)
+            tensor_bytes = rows * length * h * dh * q.element_size()
+            rows_out = []
+            for kid, name, ms, plain_ms, lib_ms, nbytes, flops, err in (
+                    ("T1f", "tower_attn_fwd", f_ms, pf_ms, lf_ms, 4 * tensor_bytes,
+                     4 * dh * pairs * h * rows, errs[0]),
+                    ("T1b", "tower_attn_bwd", b_ms, pfb_ms - pf_ms, lfb_ms - lf_ms,
+                     7 * tensor_bytes, 8 * dh * pairs * h * rows, max(errs[1:]))):
+                by_bytes, by_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dn] * 1e3
+                bound_ms = max(by_bytes, by_flops)
+                bound_by = "bytes" if by_bytes >= by_flops else "operations"
+                step_ms["bwd" if kid == "T1b" else "fwd"] += TOWER_LAYERS[label] * ms
+                rows_out.append(f"{kid} {ms:.4f} ms (bound {bound_ms:.4f} ms by {bound_by}, "
+                                f"{100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms, "
+                                f"SDPA {lib_ms:.4f} ms")
+                if i == 0:
+                    entries[name] = {
+                        "name": name, "id": kid, "route": "cuda",
+                        "source": CSRC + "tower_attention.cu",
+                        "replaces": "none (recommend_tpu/ops/attention.py: plain jnp "
+                                    "attention, which XLA fuses)",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms, "shape": [rows, length, h, dh], "dtype": dn,
+                    }
+            log(f"kernel tower attention {label} {dn} [{rows}, {length}, {h}x{dh}]: err of "
+                f"max|ref| o {errs[0]:.3g}, dq {errs[1]:.3g}, dk {errs[2]:.3g}, "
+                f"dv {errs[3]:.3g} | " + "; ".join(rows_out) + f" [{CARD}]")
+            del q, kk, v, dout, o, stats, dq, dk, dv, grads, mask, qs, ks, vs, do4
+            torch.cuda.empty_cache()
+    from perfbench.yardstick.peaks import least_seconds
+    from perfbench.yardstick.retrieval_flops import attention_work
+
+    with open(Path(__file__).resolve().parent / "perfbench/configs/kuaiformer_flagship.json") as f:
+        work = attention_work(json.load(f)["config"], TOWER_SHAPES[0][1])
+    least = least_seconds(torch.cuda.get_device_name(0), work["flops"], work["bytes"]) * 1e3
+    total = step_ms["fwd"] + step_ms["bwd"]
+    log(f"kernel tower attention, a KuaiFormer step (6 main-stack calls, 2 encoders): "
+        f"T1f {step_ms['fwd']:.3f} + T1b {step_ms['bwd']:.3f} = {total:.3f} ms against "
+        f"attention_work's least {least:.3f} ms ({100 * least / total:.1f}%) [{CARD}]")
+    ta.reset_launch_counts()  # from here on, the main path's launches
     return entries
 
 
@@ -2105,9 +2277,14 @@ def _card_vs_cpu_step(cfg, mode, batch, device):
     import torch
 
     from recommend_tpu_torch.convert import init_retrieval_params
+    from recommend_tpu_torch.ops import attention as ta
     from recommend_tpu_torch.training.trainer import RetrievalTrainer
 
     params = init_retrieval_params(cfg, seed=SEED, device="cpu")
+    # every attention of a step, forward and backward, through T1f and T1b:
+    # the main stack's blocks and one encoder layer a compressed segment
+    calls = cfg.num_layers + cfg.compression_layers * sum(
+        spec.group_size > 1 for spec in cfg.schedule_specs())
     pos = None
     out = {}
     for dev in (device, "cpu"):
@@ -2116,7 +2293,11 @@ def _card_vs_cpu_step(cfg, mode, batch, device):
             pos = tr.draw_mask_positions(cfg.batch_size, torch.Generator().manual_seed(SEED))
         grads = _spy_grads(tr)
         st = tr.init_state(params)
+        ta.reset_launch_counts()
         st, m = tr._train_step(st, tr._put_batch(batch), mask_positions=pos)
+        if torch.device(dev).type == "cuda":
+            want = {"tower_attn_fwd": calls, "tower_attn_bwd": calls, "tower_attn_plain": 0}
+            assert ta.LAUNCHES == want, f"RT: {mode} step's tower attention {ta.LAUNCHES}"
         out[dev] = ({k: float(v) for k, v in m.items()},
                     {k: v.detach().cpu() for k, v in st.params.items()},
                     {k: v.cpu() for k, v in st.opt_state[1].items()}, grads)
@@ -3707,6 +3888,7 @@ def main() -> int:
     entries = check_kernels(fa, fwd)
     entries.update(check_backward_kernels(fa, bwd))
     entries.update(check_rmsnorm())
+    entries.update(check_tower_attention())
     totals = {name: 0 for name in fa.LAUNCHES}
     # per call: score_request (encode_s) and batch_inference (full forward)
     serve_phase("A", 2, 64, 48,
@@ -3747,11 +3929,17 @@ def main() -> int:
         assert n > 0, f"{name} never launched on the main path"
     for name in RMSNORM_ENTRIES:
         entries[name]["launches"] = nm.LAUNCHES[name]
+    from recommend_tpu_torch.ops import attention as ta
+
+    for name in TOWER_ENTRIES:
+        assert ta.LAUNCHES[name] > 0, f"{name} never launched on the main path"
+        entries[name]["launches"] = ta.LAUNCHES[name]
+    log(f"tower attention launches on the main path: {ta.LAUNCHES}")
     torch.cuda.synchronize()
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s [{CARD}]")
 
     print(json.dumps({"kernels": [entries[name] for name, _, _ in KERNELS + BWD_KERNELS]
-                      + [entries[name] for name in RMSNORM_ENTRIES]}))
+                      + [entries[name] for name in RMSNORM_ENTRIES + TOWER_ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,15 +18,19 @@ Modes, each one pass:
   - ``item_embeddings``: the candidate side (the shared feature embedding).
 
 Masks are additive float32 biases (-1e9 per masked term, so a key can take
-two: -2e9, still finite in float32). Dropout and remat follow the ranking
-model: with ``deterministic=False`` an explicit ``torch.Generator`` draws one
-seed per block, and ``use_remat`` recomputes each block under
+two: -2e9, still finite in float32). Every mode but ``interests_at_position``
+hands its blocks the mask factored (``ops/attention.FactoredBias``): a
+structure over positions, built once per shape and device, plus the padding
+bias over keys. Dropout and remat follow the ranking model: with
+``deterministic=False`` an explicit ``torch.Generator`` draws one seed per
+block, and ``use_remat`` recomputes each block under
 ``torch.utils.checkpoint``. With the recorder on (``utils/profiling``) the
 main stack of blocks is the span ``tower_blocks``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -34,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from recommend_tpu_torch.config import RetrievalConfig
-from recommend_tpu_torch.ops.attention import NEG_INF
+from recommend_tpu_torch.ops.attention import NEG_INF, FactoredBias, factored_bias
 from recommend_tpu_torch.ops.compression import AdaptiveCompression
 from recommend_tpu_torch.ops.embedding import FeatureEmbedding
 from recommend_tpu_torch.ops.normalization import RMSNorm
@@ -49,45 +53,72 @@ def _bias(allowed: torch.Tensor) -> torch.Tensor:
     return torch.where(allowed, 0.0, NEG_INF).float()
 
 
-def _single_prediction_bias(token_valid: torch.Tensor, num_query: int,
-                            causal: bool) -> torch.Tensor:
-    """Attention bias for the [items(T); queries(k)] sequence, [B, 1, L, L]."""
-    b, t = token_valid.shape
+def _with_queries_valid(token_valid: torch.Tensor, queries: int) -> torch.Tensor:
+    """[B, T + queries]: the tokens' validity, then the query slots (valid)."""
+    b = token_valid.shape[0]
+    return torch.cat(
+        [token_valid, torch.ones((b, queries), dtype=torch.bool, device=token_valid.device)],
+        dim=1)
+
+
+@functools.lru_cache(maxsize=16)
+def _single_prediction_structure(t: int, num_query: int, device: torch.device) -> FactoredBias:
+    """The causal single-prediction mask's structure over ``[items(T);
+    queries(k)]`` and its tile map (no key part): items causal among
+    themselves, query tokens see every item and each other. Built once per
+    shape and device."""
     l = t + num_query
-    dev = token_valid.device
-    valid = torch.cat(
-        [token_valid, torch.ones((b, num_query), dtype=torch.bool, device=dev)], dim=1)
-    bias = _bias(valid[:, None, None, :]).expand(b, 1, l, l)
-    if causal:
-        # items causal among themselves; query tokens see all items + each other
-        pos = torch.arange(l, device=dev)
+    with torch.inference_mode(False):  # a tensor autograd may save, whoever calls first
+        pos = torch.arange(l, device=device)
         is_query = pos >= t
         allowed = (pos[None, :] <= pos[:, None]) | (is_query[None, :] & is_query[:, None])
         allowed = allowed | is_query[:, None]  # queries see every item
-        bias = bias + _bias(allowed[None, None])
-    return bias
+        return factored_bias(_bias(allowed), None)
+
+
+def _single_prediction_mask(token_valid: torch.Tensor, num_query: int,
+                            causal: bool) -> FactoredBias:
+    """The mask of the [items(T); queries(k)] sequence, factored: the key
+    part masks padded items, and a causal mask adds its structure."""
+    key = _bias(_with_queries_valid(token_valid, num_query))
+    if not causal:
+        return FactoredBias(None, key)
+    structure = _single_prediction_structure(token_valid.shape[1], num_query, token_valid.device)
+    return structure._replace(key=key)
+
+
+@functools.lru_cache(maxsize=16)
+def _interleaved_structure(t: int, num_query: int, device: torch.device) -> FactoredBias:
+    """The interleaved mask's structure over ``[items 0..T-1 ; q(0, 0..k-1) ;
+    q(1, 0..k-1) ; ...]`` and its tile map (no key part): item t sees items
+    <= t; query (t, j) sees items <= t and the queries of its own group.
+    Built once per shape and device."""
+    k = num_query
+    l = t + t * k
+    with torch.inference_mode(False):  # a tensor autograd may save, whoever calls first
+        pos = torch.arange(l, device=device)
+        is_item = pos < t
+        # the "time" of each slot: an item its own index, query group g its g
+        q_time = torch.div(pos - t, max(k, 1), rounding_mode="floor")
+        time = torch.where(is_item, pos, q_time)
+        q_group = torch.where(is_item, -1 - pos, q_time)  # unique negatives for items
+        causal_ok = is_item[None, :] & (time[None, :] <= time[:, None])
+        group_ok = (~is_item[:, None]) & (q_group[None, :] == q_group[:, None])
+        return factored_bias(_bias(causal_ok | group_ok), None)
+
+
+def _interleaved_causal_mask(token_valid: torch.Tensor, num_query: int) -> FactoredBias:
+    """The interleaved mask of length T·(1+k), factored: its structure, and
+    a key part that masks padded items as keys everywhere."""
+    t = token_valid.shape[1]
+    structure = _interleaved_structure(t, num_query, token_valid.device)
+    return structure._replace(key=_bias(_with_queries_valid(token_valid, t * num_query)))
 
 
 def _interleaved_causal_bias(token_valid: torch.Tensor, num_query: int) -> torch.Tensor:
-    """Bias for ``[items 0..T-1 ; q(0, 0..k-1) ; q(1, 0..k-1) ; ...]`` of
-    length T·(1+k): item t sees items <= t; query (t, j) sees items <= t and
-    the queries of its own group; padded items are masked as keys
-    everywhere. Returns [B, 1, L, L]."""
-    b, t = token_valid.shape
-    k = num_query
-    l = t + t * k
-    dev = token_valid.device
-    pos = torch.arange(l, device=dev)
-    is_item = pos < t
-    # the "time" of each slot: an item its own index, query group g its g
-    q_time = torch.div(pos - t, max(k, 1), rounding_mode="floor")
-    time = torch.where(is_item, pos, q_time)
-    q_group = torch.where(is_item, -1 - pos, q_time)  # unique negatives for items
-    causal_ok = is_item[None, :] & (time[None, :] <= time[:, None])
-    group_ok = (~is_item[:, None]) & (q_group[None, :] == q_group[:, None])
-    key_valid = torch.cat(
-        [token_valid, torch.ones((b, t * k), dtype=torch.bool, device=dev)], dim=1)
-    return _bias((causal_ok | group_ok)[None, None]) + _bias(key_valid[:, None, None, :])
+    """Bias for ``[items 0..T-1 ; q(0, 0..k-1) ; q(1, 0..k-1) ; ...]``,
+    [B, 1, L, L]: the factored mask's sum."""
+    return _interleaved_causal_mask(token_valid, num_query).dense()
 
 
 def _position_bias(token_valid: torch.Tensor, num_query: int,
@@ -95,7 +126,7 @@ def _position_bias(token_valid: torch.Tensor, num_query: int,
     """Bias for ``[items(T); queries(k)]`` where the queries of example b
     see the items <= position[b] and each other; items are causal among
     themselves. Returns [B, 1, L, L]."""
-    b, t = token_valid.shape
+    t = token_valid.shape[1]
     l = t + num_query
     dev = token_valid.device
     pos = torch.arange(l, device=dev)
@@ -108,8 +139,7 @@ def _position_bias(token_valid: torch.Tensor, num_query: int,
         & (~is_query)[None, None, :]
         & (pos[None, None, :] <= position.long()[:, None, None])
     )  # [B, L, L]
-    key_valid = torch.cat(
-        [token_valid, torch.ones((b, num_query), dtype=torch.bool, device=dev)], dim=1)
+    key_valid = _with_queries_valid(token_valid, num_query)
     return _bias((static_ok[None] | q_to_item)[:, None]) + _bias(key_valid[:, None, None, :])
 
 
@@ -169,7 +199,7 @@ class RetrievalTower(nn.Module):
         cfg = self.config
         tokens, token_valid = self._tokens(features, valid, dummies)
         t = tokens.shape[1]
-        bias = _single_prediction_bias(token_valid, cfg.num_query_tokens, cfg.use_causal_mask)
+        bias = _single_prediction_mask(token_valid, cfg.num_query_tokens, cfg.use_causal_mask)
         x = self._blocks(self._with_queries(tokens), bias, deterministic, generator)
         return self.final_norm(x[:, t:])
 
@@ -187,7 +217,7 @@ class RetrievalTower(nn.Module):
         tokens, token_valid = self._tokens(features, valid, dummies)
         b, t, d = tokens.shape
         k = cfg.num_query_tokens
-        bias = _interleaved_causal_bias(token_valid, k)
+        bias = _interleaved_causal_mask(token_valid, k)
         x = self._blocks(self._with_queries(tokens, t), bias, deterministic, generator)
         return self.final_norm(x[:, t:]).reshape(b, t, k, d)
 
@@ -232,7 +262,7 @@ class RetrievalTower(nn.Module):
         x = x * (1 - is_masked) + self.mask_token.to(x.dtype)[None, None] * is_masked
         tokens, token_valid = self.compress(x, valid)
         t = tokens.shape[1]
-        bias = _single_prediction_bias(token_valid, cfg.num_query_tokens, causal=False)
+        bias = _single_prediction_mask(token_valid, cfg.num_query_tokens, causal=False)
         h = self._blocks(self._with_queries(tokens), bias, deterministic, generator)
         h = self.final_norm(h[:, :t])
         # raw position p (within the tail segment) <-> token index t - (L - p)

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from recommend_tpu_torch.config import RetrievalConfig
-from recommend_tpu_torch.ops.attention import padding_mask_bias
+from recommend_tpu_torch.ops.attention import FactoredBias, padding_mask_bias
 from recommend_tpu_torch.ops.transformer import TransformerBlock
 from recommend_tpu_torch.utils.profiling import span
 
@@ -35,8 +35,9 @@ class GroupEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         """x: [N, g, D], valid: [N, g] bool -> [N, D] pooled token; the
-        pool's sums run in x's dtype."""
-        bias = padding_mask_bias(valid)
+        pool's sums run in x's dtype. The mask is the padding bias alone, as
+        the key part of a ``FactoredBias``."""
+        bias = FactoredBias(None, padding_mask_bias(valid)[:, 0, 0])
         for layer in self.layers:
             x = layer(x, bias=bias)
         w = valid.to(x.dtype)[..., None]

@@ -577,3 +577,134 @@ def test_backward_wrappers_reject_bad_statistics():
     with pytest.raises(ValueError):
         tfa.band_attn_mh_bwd(q, k, k, bias, q, torch.zeros(2, 8), torch.zeros(2, 8),
                              0.1, 4, True, 2)
+
+
+# ---------------------------------------------------------------------------
+# The retrieval tower's attention: the factored mask, its tile map, the
+# dispatch of ``MultiHeadAttention`` and the wrappers of T1f/T1b. The kernels
+# run only on a card (tests/test_torch_tower_attention_chip.py); here the
+# plain path and the checks that run before any launch.
+# ---------------------------------------------------------------------------
+
+from recommend_tpu_torch.utils import profiling  # noqa: E402
+
+
+def _tile_classes_by_hand(structure):
+    lq, lkv = structure.shape
+    t = tattn.TOWER_TILE
+    out = np.zeros((-(-lq // t), -(-lkv // t)), np.int8)
+    for i in range(out.shape[0]):
+        for j in range(out.shape[1]):
+            tile = structure[i * t:(i + 1) * t, j * t:(j + 1) * t]
+            out[i, j] = 0 if (tile <= tattn.NEG_INF / 2).all() else 1 if (tile == 0).all() else 2
+    return out
+
+
+@pytest.mark.parametrize("lq,lkv,offset", [(275, 275, None), (37, 512, None), (16, 16, None),
+                                          (1, 1, None), (40, 33, 5)])
+def test_tile_classes_mark_skipped_zero_and_mixed_tiles(lq, lkv, offset):
+    structure = tattn.causal_band_mask(lq, lkv, offset)
+    got = tattn.tile_classes(structure)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), _tile_classes_by_hand(structure.numpy()))
+    # a tile neither masked nor zero everywhere: an entry of another value
+    odd = structure.clone()
+    odd[0, 0] = -3.0
+    assert tattn.tile_classes(odd)[0, 0] == 2
+
+
+def test_factored_bias_dense_is_the_parts_sum():
+    rng = np.random.default_rng(8)
+    structure = torch.from_numpy(np.where(rng.random((5, 7)) < 0.5, 0.0, -1e9).astype(np.float32))
+    key = torch.from_numpy(np.where(rng.random((3, 7)) < 0.3, -1e9, 0.0).astype(np.float32))
+    both = tattn.factored_bias(structure, key)
+    assert torch.equal(both.dense(), structure[None, None] + key[:, None, None, :])
+    assert torch.equal(both.tiles, tattn.tile_classes(structure))
+    assert torch.equal(tattn.FactoredBias(None, key).dense(), key[:, None, None, :])
+    assert torch.equal(tattn.factored_bias(structure, None).dense(), structure[None, None])
+    assert tattn.FactoredBias(None, None).dense() is None
+    # a key masked twice sits at -2e9, as in the summed dense bias
+    assert both.dense().min().item() == -2e9
+
+
+def _mha(heads=2, dim=32, seed=0):
+    torch.manual_seed(seed)
+    return tattn.MultiHeadAttention(heads, dim)
+
+
+def test_a_factored_mask_on_the_cpu_is_the_dense_sum_bit_for_bit():
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_normal(rng, 3, 6, 32))
+    structure = tattn.causal_band_mask(6, 6)
+    key = tattn.padding_mask_bias(torch.from_numpy(rng.random((3, 6)) > 0.3))[:, 0, 0]
+    mha = _mha()
+    bias = tattn.factored_bias(structure, key)
+    tattn.reset_launch_counts()
+    assert torch.equal(mha(x, bias=bias), mha(x, bias=bias.dense()))
+    assert torch.equal(mha(x, bias=tattn.FactoredBias(None, key)),
+                       mha(x, bias=key[:, None, None, :].expand(3, 1, 6, 6)))
+    assert all(c == 0 for c in tattn.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("factored", [True, False], ids=["factored", "dense"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_the_dispatch_sends_factored_masks_to_the_kernels_off_the_cpu(factored, device):
+    """Off the CPU (the meta device stands in for a card here) a factored
+    mask reaches the kernels' wrapper and a dense bias the plain path,
+    counted as ``tower_attn_plain``; on the CPU both take the plain path."""
+    mha = _mha().to(device)
+    x = torch.zeros(2, 5, 32, device=device)
+    key = torch.zeros(2, 5, device=device)
+    bias = tattn.FactoredBias(None, key) if factored else key[:, None, None, :]
+    tattn.reset_launch_counts()
+    with mock.patch.object(tattn, "tower_attention", wraps=tattn.tower_attention) as kernels, \
+            mock.patch.object(tattn, "dot_product_attention",
+                              wraps=tattn.dot_product_attention) as plain:
+        if factored and device == "meta":
+            with pytest.raises(ValueError, match="unsupported device meta"):
+                mha(x, bias=bias)
+        else:
+            assert mha(x, bias=bias).shape == (2, 5, 32)
+    to_kernels = factored and device == "meta"
+    assert kernels.call_count == int(to_kernels) and plain.call_count == int(not to_kernels)
+    assert tattn.LAUNCHES == {"tower_attn_fwd": 0, "tower_attn_bwd": 0,
+                              "tower_attn_plain": int(device == "meta" and not factored)}
+
+
+def test_the_tower_launch_counter_registers_and_resets():
+    assert profiling.RECORDER.registered["tower_attention_launches"] is tattn.LAUNCHES
+    tattn.LAUNCHES["tower_attn_fwd"] += 3
+    tattn.LAUNCHES["tower_attn_plain"] += 1
+    with profiling.recording():
+        assert profiling.export()["registered"]["tower_attention_launches"] == tattn.LAUNCHES
+    tattn.reset_launch_counts()
+    assert tattn.LAUNCHES == {"tower_attn_fwd": 0, "tower_attn_bwd": 0, "tower_attn_plain": 0}
+
+
+def test_the_tower_wrappers_reject_what_the_kernels_do_not_take():
+    def qkv(b=2, lq=8, lkv=8, width=32, dtype=torch.bfloat16):
+        return (torch.zeros(b, lq, width, dtype=dtype), torch.zeros(b, lkv, width, dtype=dtype),
+                torch.zeros(b, lkv, width, dtype=dtype))
+
+    structure = torch.zeros(8, 8)
+    tiles = tattn.tile_classes(structure)
+    cases = [
+        (qkv(dtype=torch.float16), None, None, None, 2, TypeError),
+        ((torch.zeros(2, 8, 32), *qkv()[1:]), None, None, None, 2, TypeError),  # mixed dtypes
+        (qkv(width=128), None, None, None, 2, ValueError),  # Dh 64
+        (qkv(lq=513), None, None, None, 2, ValueError),
+        (qkv(lkv=513), None, None, None, 2, ValueError),
+        (qkv(width=30), None, None, None, 4, ValueError),  # heads do not divide the width
+        (qkv(), structure, None, None, 2, ValueError),  # a structure without its map
+        (qkv(), structure[:4], None, tiles, 2, ValueError),
+        (qkv(), structure.double(), None, tiles, 2, ValueError),
+        (qkv(), None, torch.zeros(2, 7), None, 2, ValueError),
+        (qkv(), structure, torch.zeros(2, 8), tiles, 2, ValueError),  # the CPU
+    ]
+    for (q, k, v), s, key, t, heads, err in cases:
+        with pytest.raises(err):
+            tattn.tower_attn_fwd(q, k, v, s, key, t, heads, with_stats=True)
+        stats = torch.zeros(q.shape[0], heads, q.shape[1], 2)
+        with pytest.raises(err):
+            tattn.tower_attn_bwd(q, k, v, q, stats, s, key, t, heads)
+    tattn.reset_launch_counts()

@@ -59,6 +59,7 @@ import torch
 from recommend_tpu import config as jconfig
 from recommend_tpu_torch import config as tconfig
 from recommend_tpu_torch.ops import _build
+from recommend_tpu_torch.ops import attention as tattn
 from recommend_tpu_torch.ops import flash_attention as tfa
 from recommend_tpu_torch.ops import normalization as tnorm
 
@@ -172,7 +173,9 @@ def test_make_mesh_without_cuda_raises_unless_told_cpu(monkeypatch):
 def test_cuda_entry_points_match_their_bindings():
     library = dict(tfa.LIBRARY)
     library.update({name: tnorm.LIBRARY for name in tnorm._SIGNATURES})
-    for name, argtypes in {**tfa._SIGNATURES, **tnorm._SIGNATURES}.items():
+    library.update({name: tattn.LIBRARY for name in tattn._SIGNATURES})
+    for name, argtypes in {**tfa._SIGNATURES, **tnorm._SIGNATURES,
+                           **tattn._SIGNATURES}.items():
         src = (_build.CSRC / f"{library[name]}.cu").read_text()
         extern = src[src.index('extern "C"'):]
         m = re.search(rf"int {name}\(([^)]*)\)", extern)
@@ -189,6 +192,10 @@ def test_cuda_entry_points_match_their_bindings():
     # the norm's three: forward, backward, dscale (no Pallas kernel behind them)
     assert set(tnorm._SIGNATURES) == set(tnorm.LAUNCHES) == {
         "rmsnorm_fwd", "rmsnorm_bwd", "rmsnorm_dscale"}
+    # the tower attention's two (no Pallas kernel behind them), and the count
+    # of the tower's calls on a card that took the plain path
+    assert set(tattn._SIGNATURES) == {"tower_attn_fwd", "tower_attn_bwd"}
+    assert set(tattn.LAUNCHES) == set(tattn._SIGNATURES) | {"tower_attn_plain"}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(library.values())
     # a new header would be hashed into every library's name (a rebuild of all)
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {

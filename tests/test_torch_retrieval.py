@@ -371,3 +371,114 @@ def test_tower_dropout_is_seeded_and_remat_recomputes_the_same_masks(f32_setup):
     assert grads.keys() == remat_grads.keys()
     for n in grads:
         torch.testing.assert_close(remat_grads[n], grads[n], rtol=1e-6, atol=1e-7)
+
+
+# -- the factored masks ------------------------------------------------------
+
+from recommend_tpu.models import retrieval as jretrieval  # noqa: E402
+from recommend_tpu.ops.attention import padding_mask_bias as j_padding_mask_bias  # noqa: E402
+from recommend_tpu_torch.models import retrieval as tretrieval  # noqa: E402
+from recommend_tpu_torch.ops import attention as tattn  # noqa: E402
+
+
+def _left_padded(b, t, seed):
+    rng = np.random.default_rng(seed)
+    valid = np.arange(t)[None, :] >= rng.integers(0, t + 1, size=(b, 1))
+    valid[0] = True  # one full history
+    return valid
+
+
+@pytest.mark.parametrize("mode", ["single", "single_causal", "interleaved", "encoder"])
+def test_factored_masks_sum_to_the_jax_dense_biases_bit_for_bit(mode):
+    """Each tower mask the tower hands its blocks factored sums, part for
+    part, to the JAX package's dense bias (the one the port built before)."""
+    t, k = 11, 3
+    valid = _left_padded(5, t, seed=len(mode))
+    tv = torch.as_tensor(valid)
+    if mode == "encoder":
+        got = tattn.FactoredBias(None, tattn.padding_mask_bias(tv)[:, 0, 0])
+        ref = j_padding_mask_bias(jnp.asarray(valid))
+    elif mode == "interleaved":
+        got = tretrieval._interleaved_causal_mask(tv, k)
+        ref = jretrieval._interleaved_causal_bias(jnp.asarray(valid), k)
+    else:
+        causal = mode == "single_causal"
+        got = tretrieval._single_prediction_mask(tv, k, causal)
+        ref = jretrieval._single_prediction_bias(jnp.asarray(valid), k, causal)
+    ref = np.asarray(ref)
+    dense = got.dense().expand(ref.shape).numpy()
+    assert dense.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(dense, ref)
+    assert (got.structure is None) == (mode in ("single", "encoder"))
+    if got.structure is not None:
+        assert torch.equal(got.tiles, tattn.tile_classes(got.structure))
+    # the interleaved mask's dense wrapper, which perfbench's counts read
+    if mode == "interleaved":
+        assert torch.equal(tretrieval._interleaved_causal_bias(tv, k), got.dense())
+
+
+def test_the_mask_structures_are_built_once_per_shape():
+    tv = torch.ones(2, 7, dtype=torch.bool)
+    a = tretrieval._interleaved_causal_mask(tv, 2)
+    b = tretrieval._interleaved_causal_mask(tv[:1], 2)
+    assert a.structure is b.structure and a.tiles is b.tiles
+    assert a.key.shape == (2, 21) and b.key.shape == (1, 21)
+    with torch.inference_mode():  # a structure autograd may save later
+        c = tretrieval._single_prediction_mask(torch.ones(1, 9, dtype=torch.bool), 2, True)
+    assert not c.structure.is_inference()
+
+
+GRAD_MODES = ("call", "causal_call", "all_position_interests", "masked_position_outputs")
+
+
+@pytest.mark.parametrize("mode", GRAD_MODES)
+def test_tower_gradients_match_at_f32(mode, f32_setup):
+    """The gradient of a fixed projection of each trained mode's output with
+    respect to every parameter, against ``jax.grad`` (float32, F32_TOL x 10
+    of each tensor's largest |value|: the gradients sum over the batch)."""
+    cfg, batch, model, params, tower = f32_setup
+    if mode == "causal_call":
+        cfg = dataclasses.replace(cfg, use_causal_mask=True)
+        model = JTower(cfg)
+    tcfg = port_cfg(cfg)
+    port = load_tower(tcfg, tower.state_dict(), torch.device("cpu")).requires_grad_(True)
+    jf, jv = jax_in(batch)
+    tf, tv = torch_in(batch)
+    b, l = len(batch["history_valid"]), cfg.max_seq_len
+    mp = np.stack([np.array([l - 1 - i % 3, l - 5 + i % 2]) for i in range(b)])
+
+    def j_out(p):
+        if mode == "all_position_interests":
+            return model.apply(p, jf, jv, method=JTower.all_position_interests)
+        if mode == "masked_position_outputs":
+            return model.apply(p, jf, jv, jnp.asarray(mp), method=JTower.masked_position_outputs)
+        return model.apply(p, jf, jv)
+
+    def t_out():
+        if mode == "all_position_interests":
+            return port.all_position_interests(tf, tv)
+        if mode == "masked_position_outputs":
+            return port.masked_position_outputs(tf, tv, torch.as_tensor(mp))
+        return port(tf, tv)
+
+    w = np.random.default_rng(3).normal(size=np.shape(j_out(params))).astype(np.float32)
+    j_grads = jax.grad(lambda p: (j_out(p) * w).sum())(params)
+    ref = retrieval_params_from_flax(jax.device_get(j_grads), tcfg)
+    (t_out() * torch.as_tensor(w)).sum().backward()
+    got = {n: p.grad for n, p in port.named_parameters()}
+    checked = 0
+    largest = max(float(r.abs().max()) for r in ref.values())
+    for name, r in ref.items():
+        top = float(r.abs().max())
+        if name.endswith("attn.k_proj.bias"):
+            # softmax ignores a shift of a query's logits, so the true
+            # gradient is 0 and both sides hold rounding noise
+            assert float(got[name].abs().max()) <= F32_TOL * largest, name
+            continue
+        if top == 0.0:  # a parameter the mode does not reach
+            assert got[name] is None or not bool(got[name].any()), name
+            continue
+        err = float((got[name] - r).abs().max()) / top
+        assert err <= 10 * F32_TOL, (name, err)
+        checked += 1
+    assert checked > 10
