@@ -19,7 +19,7 @@ With sparse embedding updates the id tables are left to the touched-row path
 never writes them.
 
 ``RankingOptimizer.step`` and ``RetrievalOptimizer.step`` update parameters
-and state IN PLACE.
+and state IN PLACE; both take adam's step of a tensor from ``adam_update``.
 """
 
 from __future__ import annotations
@@ -82,6 +82,22 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
 
 
+def adam_update(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                b1: float, b2: float, c1: float, c2: float, lr: float,
+                weight_decay: Optional[float]) -> None:
+    """optax's adam on one tensor, in place: the moments ``mu``, ``nu``
+    decay at ``b1``, ``b2`` and are divided by their bias corrections
+    ``c1``, ``c2`` (``_bias_correction`` at the step's count + 1), eps 1e-8
+    outside the square root; adamw adds ``weight_decay`` times ``p``
+    (None: plain adam); ``p`` moves by -``lr`` times the update."""
+    mu.copy_(g * (1 - b1) + mu * b1)
+    nu.copy_(g.square() * (1 - b2) + nu * b2)
+    u = (mu / c1) / (torch.sqrt(nu / c2) + 1e-8)
+    if weight_decay is not None:
+        u = u + weight_decay * p
+    p.add_(u * -lr)
+
+
 class RankingOptimizer:
     """Global-norm clip, then the dense rule on every tensor not in
     ``sparse_names`` and the sparse rule on those."""
@@ -135,6 +151,7 @@ class RankingOptimizer:
         dense_lr = _lr_at(self.dense_lr, count)
         sparse_lr = _lr_at(self.sparse_lr, count)
         ds, ss = state["dense"], state["sparse"]
+        c1, c2 = _bias_correction(0.9, count + 1), _bias_correction(0.999, count + 1)
         for n in names:
             p = params[n]
             g = torch.where(trigger, grads[n], grads[n] / norm * clip)
@@ -154,15 +171,9 @@ class RankingOptimizer:
                 trace.copy_(u + trace * cfg.dense_momentum)
                 p.add_(trace)
             else:
-                mu, nu = ds["mu"][n], ds["nu"][n]
-                mu.copy_(g * (1 - 0.9) + mu * 0.9)
-                nu.copy_(g.square() * (1 - 0.999) + nu * 0.999)
-                mu_hat = mu / _bias_correction(0.9, count + 1)
-                nu_hat = nu / _bias_correction(0.999, count + 1)
-                u = mu_hat / (torch.sqrt(nu_hat) + 1e-8)
-                if cfg.dense_optimizer == "adamw" and p.ndim >= 2:
-                    u = u + cfg.dense_weight_decay * p
-                p.add_(u * -dense_lr)
+                decay = cfg.dense_optimizer == "adamw" and p.ndim >= 2
+                adam_update(p, g, ds["mu"][n], ds["nu"][n], 0.9, 0.999, c1, c2, dense_lr,
+                            cfg.dense_weight_decay if decay else None)
         state["count"] = count + 1
         return norm
 
@@ -197,13 +208,9 @@ class RetrievalOptimizer:
         lr = self.lr(count)
         c1, c2 = _bias_correction(b1, count + 1), _bias_correction(b2, count + 1)
         for n, g in grads.items():
-            if n in self.frozen:
-                continue
-            p, mu, nu = params[n], state["mu"][n], state["nu"][n]
-            mu.copy_(g * (1 - b1) + mu * b1)
-            nu.copy_(g.square() * (1 - b2) + nu * b2)
-            u = (mu / c1) / (torch.sqrt(nu / c2) + 1e-8) + cfg.weight_decay * p
-            p.add_(u * -lr)
+            if n not in self.frozen:
+                adam_update(params[n], g, state["mu"][n], state["nu"][n], b1, b2, c1, c2, lr,
+                            cfg.weight_decay)
         state["count"] = count + 1
 
 

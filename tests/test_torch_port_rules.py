@@ -652,7 +652,7 @@ def test_the_new_modules_are_under_the_import_rule():
                  "llm4rec/semantic_distill.py", "llm4rec/semantic_ids.py", "data/replica.py",
                  "data/datasets.py", "data/native.py", "parallel/__init__.py",
                  "parallel/mesh.py", "parallel/sharding.py", "parallel/embedding_sharding.py",
-                 "training/sharded.py"):
+                 "training/base.py"):
         assert f"recommend_tpu_torch/{name}" in names, name
     assert {"chip_smoke.py", "quality_torch.py"} <= names
 

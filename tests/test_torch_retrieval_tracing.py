@@ -76,13 +76,17 @@ def test_the_step_is_a_tree_of_phase_spans(mode):
 
 
 def test_the_phases_carry_the_ranking_trainers_names():
-    from recommend_tpu_torch.training import ranking_trainer, trainer
-
+    """Both trainers run the one step of ``training/base.py``, whose spans
+    are the phases."""
     import inspect
 
-    for mod in (ranking_trainer, trainer):
-        src = inspect.getsource(mod)
-        assert all(f'span("{p}")' in src for p in PHASES), mod.__name__
+    from recommend_tpu_torch.training.base import TrainerBase
+    from recommend_tpu_torch.training.ranking_trainer import RankingTrainer
+
+    src = inspect.getsource(TrainerBase._train_step)
+    assert all(f'span("{p}")' in src for p in PHASES)
+    for cls in (RankingTrainer, RetrievalTrainer):
+        assert cls._train_step is TrainerBase._train_step, cls.__name__
 
 
 @pytest.mark.parametrize("budget", [0, 40])

@@ -247,11 +247,15 @@ def test_bce_loss_and_streaming_auc_match_jax():
 def _trainer_cfg(embed_dim, num_heads, mode):
     """_tiny_cfg with 48 items per sequence: S = 146, so layer 0 keeps 75
     queries and takes the kernel routes (Dh 128: the segmented kernel; Dh
-    32: concat + the [B·H, L, Dh] whole-tile kernel)."""
+    32: concat + the [B·H, L, Dh] whole-tile kernel). ``mode`` is the sparse
+    update mode or ``dense``; ``+budget`` adds a scatter budget of 256 rows,
+    below the 275-386 valid sequence rows of each of the tests' batches."""
+    mode, _, budget = mode.partition("+")
     return dataclasses.replace(
         _tiny_cfg(), embed_dim=embed_dim, num_heads=num_heads, use_flash_attention=True,
         use_sparse_embedding_updates=mode != "dense",
-        sparse_update_mode="exact" if mode == "dense" else mode, batch_size=4)
+        sparse_update_mode="exact" if mode == "dense" else mode, batch_size=4,
+        sparse_scatter_budget=256 if budget else 0)
 
 
 def _flax_state(tree, cfg):
@@ -264,6 +268,7 @@ TRAINER_CASES = [
     (128, 1, "exact", "band_attn_segkv_bwd_plain"),
     (64, 2, "rowwise", "band_attn_bh_bwd_plain"),
     (64, 2, "dense", "band_attn_bh_bwd_plain"),
+    (64, 2, "rowwise+budget", "band_attn_bh_bwd_plain"),
 ]
 
 
@@ -271,8 +276,9 @@ TRAINER_CASES = [
 def test_trainer_steps_match_jax_trainer(embed_dim, num_heads, mode, route, monkeypatch):
     """One and three steps from the same converted state on the same
     batches (dropout 0; the JAX kernels in interpret mode, the port's plain
-    versions): loss (rtol 1e-5), every parameter the flax tree has, the
-    tables and the accumulators (atol 1e-5, rtol 1e-4); then evaluate()."""
+    versions): loss (rtol 1e-5), the rows the scatter budget dropped
+    (exactly), every parameter the flax tree has, the tables and the
+    accumulators (atol 1e-5, rtol 1e-4); then evaluate()."""
     cfg = _trainer_cfg(embed_dim, num_heads, mode)
     tcfg = port_config(cfg)
     data = jsynthetic.make_ranking_data(cfg, num_samples=16, max_seq_per_feature=48, seed=0)
@@ -296,6 +302,9 @@ def test_trainer_steps_match_jax_trainer(embed_dim, num_heads, mode, route, monk
         ts, tm = tt._train_step(ts, tt._put_batch(batch))
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
         np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]), rtol=1e-4)
+        assert ("sparse_dropped_rows" in tm) == ("sparse_dropped_rows" in jm)
+        if "sparse_dropped_rows" in jm:
+            assert int(tm["sparse_dropped_rows"]) == int(jm["sparse_dropped_rows"]) > 0
         if step in (1, 3):
             ref = _flax_state(js.params, tcfg)
             for k, v in ref.items():
